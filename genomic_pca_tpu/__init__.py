@@ -1,6 +1,6 @@
-"""genomic_pca_tpu — TPU-native genomic PCA framework.
+"""genomic_pca_tpu — genomic PCA framework on JAX/XLA.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
+A from-scratch JAX/XLA re-design of the capabilities of the
 SauersML/genomic_pca reference tool (Rust CLI, reference at
 /root/reference/src/main.rs:80-130):
 
@@ -12,9 +12,9 @@ SauersML/genomic_pca reference tool (Rust CLI, reference at
   (reference: src/main.rs:250-447, src/prepare.rs).
 
 Compute is JAX-first: int8 dosage strips live on device, QC reductions /
-standardize-matmuls are jitted XLA programs (Pallas kernels on the hot
-path), and the variant axis shards across a `jax.sharding.Mesh` with
-`psum`-merged Gram/sketch contributions for multi-chip scale.
+standardize-matmuls are jitted XLA programs (ops/products.py), and the
+variant axis shards across a `jax.sharding.Mesh` with `psum`-merged
+Gram/sketch contributions for multi-device scale.
 """
 
 __version__ = "0.1.0"

@@ -29,7 +29,7 @@ log = logging.getLogger("genomic_pca_tpu")
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="genomic-pca-tpu",
-        description="Genomic PCA Tool from VCF or BED/LD-block files (TPU-native).",
+        description="Genomic PCA Tool from VCF or BED/LD-block files (JAX/XLA).",
     )
     from genomic_pca_tpu import __version__
 
@@ -106,9 +106,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Number of refinement passes (default 1).")
     p.add_argument("--eigensnp-refine-width", type=int, default=None,
                    help="Refinement subspace width (extension over the "
-                        "reference: default auto-fills the 128-lane MXU "
-                        "tile the kernels pad to anyway; set to k_global "
-                        "to refine exactly the stage-2 basis).")
+                        "reference: default widens to 128 columns for "
+                        "better convergence; set to k_global to refine "
+                        "exactly the stage-2 basis).")
     p.add_argument("--eigensnp-collect-diagnostics", action="store_true",
                    help="Enable detailed diagnostics collection.")
     p.add_argument("--eigensnp-diagnostic-block-tag", default=None,

@@ -122,9 +122,8 @@ class EigenSnpConfig:
     # diagnostics collection.
     diagnostic_block_tag: Optional[str] = None
     # Width of the refinement subspace (extension over the reference).
-    # None = auto: fill the 128-lane MXU tile the fused kernels pad the
-    # sketch to anyway (same TPU wall-clock as width k, strictly better
-    # convergence — see models/pca.lane_fill_width).  Set <= k_global to
+    # None = auto: widen to 128 columns (better convergence per pass —
+    # see models/pca.lane_fill_width).  Set <= k_global to
     # refine exactly the k-dimensional stage-2 basis.
     refine_width: Optional[int] = None
 

@@ -29,8 +29,3 @@ class DataPrepError(GenomicPcaError, ValueError):
 class ComputeError(GenomicPcaError, ValueError):
     """PCA engine failures (invalid shapes, no surviving variants)."""
 
-
-class PreflightError(GenomicPcaError, RuntimeError):
-    """Resource preflight rejected the planned run (e.g. the estimated
-    device-upload total exceeds the host budget on a relay backend) —
-    a fast actionable error instead of an OOM-killed host."""

@@ -95,9 +95,7 @@ def analyze(
 
     results: List[Dict] = []
     if jobs > 1 and len(work) > 1:
-        from genomic_pca_tpu.utils.subproc import host_only_children
-
-        with host_only_children(), ProcessPoolExecutor(jobs) as pool:
+        with ProcessPoolExecutor(jobs) as pool:
             for res in pool.map(_worker, work):
                 if res:
                     results.append(res)

@@ -1,6 +1,6 @@
 """PLINK .bed/.bim/.fam reader (and writer, for tests/synthetic data).
 
-TPU-native replacement for the reference's `bed-reader` dependency
+Replacement for the reference's `bed-reader` dependency
 (/root/reference/src/prepare.rs:21, 622-629): memory-mapped 2-bit decode of
 the SNP-major PLINK1 .bed format into int8 dosage arrays with the -127
 missing sentinel the rest of the framework standardizes on

@@ -303,14 +303,11 @@ def load_vcf_directory_sharded(
     if n_workers > 1 and len(owned) > 1:
         import multiprocessing as mp
 
-        from genomic_pca_tpu.utils.subproc import host_only_children
-
-        with host_only_children():
-            with mp.get_context("spawn").Pool(min(n_workers, len(owned))) as pool:
-                parsed = pool.starmap(
-                    process_single_vcf,
-                    [(p, canonical, maf_threshold) for _i, p in owned],
-                )
+        with mp.get_context("spawn").Pool(min(n_workers, len(owned))) as pool:
+            parsed = pool.starmap(
+                process_single_vcf,
+                [(p, canonical, maf_threshold) for _i, p in owned],
+            )
     else:
         parsed = [process_single_vcf(p, canonical, maf_threshold) for _i, p in owned]
 
@@ -344,14 +341,11 @@ def load_vcf_directory(
     if n_workers > 1 and len(paths) > 1:
         import multiprocessing as mp
 
-        from genomic_pca_tpu.utils.subproc import host_only_children
-
-        with host_only_children():
-            with mp.get_context("spawn").Pool(min(n_workers, len(paths))) as pool:
-                blocks = pool.starmap(
-                    process_single_vcf,
-                    [(p, canonical, maf_threshold) for p in paths],
-                )
+        with mp.get_context("spawn").Pool(min(n_workers, len(paths))) as pool:
+            blocks = pool.starmap(
+                process_single_vcf,
+                [(p, canonical, maf_threshold) for p in paths],
+            )
     else:
         try:
             from tqdm import tqdm

@@ -6,7 +6,7 @@ Re-implementation of the reference's own numeric ground truth
 matrix in float64, divide by the kept-variant count, exact `eigh`, and
 scores = eigenvectors * sqrt(eigenvalues).
 
-Runs in numpy float64 on host: it is the measuring stick the TPU paths are
+Runs in numpy float64 on host: it is the measuring stick the device paths are
 validated against (sign-flip-invariant |r| > 0.999 per PC, SURVEY §7), not
 a production path.
 """

@@ -7,7 +7,7 @@ into PC space.  Input validation mirrors pca_runner::run_genomic_pca
 (main.rs:607-634): k >= 1, n_samples >= 2, n_features >= 1, and k is
 clamped to min(n, d) with a warning.
 
-TPU-native formulation: the matrix lives as int8 strips (ops/stream.py)
+Formulation: the matrix lives as int8 or 2-bit strips (ops/products.py)
 and the randomized SVD runs as subspace iteration in the small sample
 dimension —
 
@@ -18,7 +18,7 @@ dimension —
     U     = A V / sigma   (loadings, streamed)
 
 so device memory stays O(N*l) however many variants stream through, and
-every FLOP is an MXU matmul over the fused-standardized strips.
+every FLOP is a matmul over standardized strips.
 """
 
 from __future__ import annotations
@@ -38,32 +38,30 @@ from genomic_pca_tpu.utils.rng import key_from_words, seed_words
 
 log = logging.getLogger(__name__)
 
-MXU_LANES = 128
+SKETCH_FILL = 128
 
 
 @functools.partial(jax.jit, static_argnames=("n", "ell"))
 def _sketch_prog(kwords, n: int, ell: int):
     """rfit's Gaussian sketch as ONE program: the key derives in-program
-    from raw seed words (the previous eager `key_for_stage` +
-    `jax.random.normal` chain cost ~3 cold remote compiles; same bits)."""
+    from raw seed words (one compile instead of the eager
+    `key_for_stage` + `jax.random.normal` chain's three; same bits)."""
     key = key_from_words(kwords, "rfit_sketch")
     return jax.random.normal(key, (n, ell), dtype=jnp.float32)
 
 
 def lane_fill_width(ell: int, n: int, d: int) -> int:
-    """Round a sketch width up to the 128-lane MXU tile (capped by the
+    """Round a sketch width up to a multiple of 128 (capped by the
     matrix dims).
 
-    The fused TPU kernels zero-pad the sketch to 128 lanes regardless, so
-    the extra columns are FREE on the hot path — at the reference's
-    defaults (k=10, oversampling 10 -> ell=20,
-    /root/reference/src/main.rs:648-656) ~6x of every hot-loop FLOP was
-    padding; spending those lanes on a wider sketch buys strictly better
-    subspace convergence at identical wall-clock (VALIDATION.md round-1
-    kernel analysis).
+    A wider sketch buys better subspace convergence per pass; at the
+    reference's defaults (k=10, oversampling 10 -> ell=20,
+    /root/reference/src/main.rs:648-656) it multiplies the power-pass
+    work by 128/20.  Whether that trade pays on a given device is a
+    measurement (ROADMAP S4).
     """
     cap = min(n, d)
-    filled = -(-ell // MXU_LANES) * MXU_LANES
+    filled = -(-ell // SKETCH_FILL) * SKETCH_FILL
     return max(ell, min(filled, cap))
 
 
@@ -110,9 +108,8 @@ def streamed_pca(
 ) -> PcaResult:
     """Randomized PCA of the implicit standardized matrix A (D x N).
 
-    `lane_fill=True` (default) widens the sketch to the 128-lane MXU
-    tile the kernels pad to anyway — same wall-clock on TPU, strictly
-    better convergence (see `lane_fill_width`).
+    `lane_fill=True` (default) widens the sketch to a multiple of 128
+    columns for better convergence per pass (see `lane_fill_width`).
 
     `tolerance` completes the `rfit` API contract
     (/root/reference/src/main.rs:648-656, tolerance: Option<f64>): the
@@ -145,7 +142,7 @@ def streamed_pca(
                     "iterations.", tolerance, n_done, n_iter,
                 )
         # Finalization math on HOST (the arrays download anyway): an
-        # eager device multiply here costs a cold remote compile.
+        # eager device multiply here would cost one more compile.
         sigma_np = np.asarray(sigma_k)
         return PcaResult(
             scores=np.asarray(v_k) * sigma_np[None, :],
@@ -188,7 +185,8 @@ def streamed_pca(
     evals = jnp.maximum(evals[order], 0.0)
     w = w[:, order]
     sigma = jnp.sqrt(evals)
-    v = b @ w  # (n, l) right singular vectors
+    # (n, l) right singular vectors, HIGHEST: they are the scores.
+    v = jnp.dot(b, w, precision=jax.lax.Precision.HIGHEST)
 
     v_k = v[:, :k]
     sigma_k = sigma[:k]
@@ -313,8 +311,8 @@ class StripProjector:
 
         self.mesh = mesh or make_mesh()
         n_dev = self.mesh.devices.size
-        # Pad rows to a device multiple x 8 sublanes so the variant-axis
-        # shard is even and tile-aligned.
+        # Pad rows to a multiple of 8 per device so the variant-axis
+        # shard is even and aligned.
         unit = n_dev * 8
         self.rows = -(-strip_rows // unit) * unit
         self.n_new = int(n_new)
@@ -329,8 +327,11 @@ class StripProjector:
             )
             # inv_std = 0 rows (padding / monomorphic) are inert here.
             x = x * inv_std[:, None]
+            # HIGHEST: projected scores are user-visible output, and a
+            # GPU would otherwise run this f32 contraction in TF32.
             return jnp.einsum(
-                "dn,dk->nk", x, w, preferred_element_type=jnp.float32
+                "dn,dk->nk", x, w, preferred_element_type=jnp.float32,
+                precision=jax.lax.Precision.HIGHEST,
             )
 
         self._fn = jax.jit(

@@ -1,26 +1,28 @@
 """The standardized-genotype operator contract.
 
 ONE duck-typed interface backs every PCA model in the framework — the
-TPU-native replacement for the reference's `PcaReadyGenotypeAccessor`
+replacement for the reference's `PcaReadyGenotypeAccessor`
 trait (/root/reference/src/prepare.rs:1838-2029), lifted from
 "fetch me a standardized block" (pull-based, host-side) to "apply the
 implicit operator A = diag(1/std) (G - mean)" (push-based, device-side
-matmuls), which is the shape XLA/MXU hardware wants.
+matmuls), which is the shape matrix hardware wants.
 
 Three containers implement it, each with a distinct, documented role:
 
-* `parallel.sharded.ShardedMatrix` — PRODUCTION, HBM-resident.  The
+* `parallel.sharded.ShardedMatrix` — PRODUCTION, device-resident.  The
   genotype block (int8 or PLINK 2-bit packed) lives sharded over the
   variant axis of a device mesh; passes run under `shard_map` through
-  the fused Pallas kernels with one `psum` per pass.  Fastest; used
-  whenever the (packed) matrix fits aggregate HBM.
-* `ops.streaming.StreamingMatrix` — PRODUCTION, bigger-than-HBM.
+  the XLA strip products (ops/products.py) with one `psum` per pass.
+  Fastest; used whenever the (packed) matrix fits aggregate device
+  memory.
+* `ops.streaming.StreamingMatrix` — PRODUCTION, bigger-than-memory.
   Strips live on host (disk/RAM) and stream through the prefetch
   pipeline each pass, round-robin across mesh devices; the condensed
-  factors merge once per pass.  Used when the dataset exceeds HBM.
+  factors merge once per pass.  Used when the dataset exceeds device
+  memory.
 * `ops.stream.StripedMatrix` — TEST ORACLE.  The simplest possible
   implementation (a Python list of device strips, plain XLA matmuls,
-  no mesh, no Pallas, no prefetch).  It exists so the two production
+  f32 at HIGHEST, no mesh, no prefetch).  It exists so the two production
   containers can be cross-checked against an independent
   obviously-correct implementation; it is not reachable from any
   production workflow.

@@ -1,7 +1,7 @@
 """Per-SNP QC: device-side genotype histograms + host-side exact filters.
 
 Replaces the reference's two-pass 256-bit-SIMD QC kernel
-(/root/reference/src/prepare.rs:1232-1363) with a TPU-friendly split:
+(/root/reference/src/prepare.rs:1232-1363) with a device/host split:
 
 1. `genotype_counts` — a jitted XLA reduction over the samples axis of an
    int8 SNP-major strip, producing per-SNP counts (n0, n1, n2, n_valid)

@@ -1,11 +1,10 @@
-"""Randomized SVD, TPU-first.
+"""Randomized SVD.
 
 Re-creation of the compute contract of the external `efficient_pca` crate's
 `rfit` (API characterized at /root/reference/src/main.rs:648-660 and SURVEY
 §2.4): sketch -> power iterations with QR re-orthonormalization -> small
-exact SVD.  All matmuls are MXU-shaped (f32, `preferred_element_type`),
-shapes are static, and the PRNG is an explicit key so results are
-bitwise-reproducible for a fixed seed at any device count.
+exact SVD.  Shapes are static, and the PRNG is an explicit key so
+results are bitwise-reproducible for a fixed seed at any device count.
 
 Convention: `rsvd(X)` treats X as (rows x cols) and returns (U, s, Vt) with
 U: rows x k, s: k, Vt: k x cols — the rank-k truncated SVD approximation.
@@ -13,6 +12,7 @@ U: rows x k, s: k, Vt: k x cols — the rank-k truncated SVD approximation.
 
 from __future__ import annotations
 
+import functools
 from functools import partial
 from typing import Tuple
 
@@ -27,13 +27,13 @@ def _qr_q(a: jax.Array) -> jax.Array:
 
 
 def cholqr2_q(t: jax.Array) -> jax.Array:
-    """Two-pass Cholesky-QR orthonormal factor: MXU-only.
+    """Two-pass Cholesky-QR orthonormal factor.
 
-    Householder QR of a tall-skinny block is latency-bound on TPU and
-    compiles to a large batched loop under vmap (seconds of XLA compile
-    per fused stage-1 program); CholQR2 is two small HIGHEST-precision
-    matmuls + an (l, l) Cholesky per pass — compile-light, MXU-dense,
-    and stable to cond(T) ~ 1e4 with the column pre-normalization +
+    Householder QR of a tall-skinny block is latency-bound and compiles
+    to a large batched loop under vmap (seconds of XLA compile per fused
+    stage-1 program); CholQR2 is two small HIGHEST-precision matmuls +
+    an (l, l) Cholesky per pass — compile-light, matmul-dense, and
+    stable to cond(T) ~ 1e4 with the column pre-normalization +
     second pass (same discipline as the sharded power loop,
     parallel/sharded.py cholqr2)."""
     eps = jnp.asarray(1e-12, t.dtype)
@@ -67,24 +67,29 @@ def rsvd(
     Halko-Martinsson-Tropp with per-iteration re-orthonormalization; the
     sketch width is k + n_oversamples (reference uses n_oversamples=10,
     main.rs:651).  `orth` picks the stabilizer: "qr" (Householder,
-    exact) or "cholqr2" (MXU-only, compile-light — what the vmapped
+    exact) or "cholqr2" (matmul-only, compile-light — what the vmapped
     fused stage-1 programs use; see `cholqr2_q`).  The small exact SVD
     of the projected matrix is unchanged either way.
     """
     m, n = x.shape
     ell = min(k + n_oversamples, min(m, n))
     orth_q = _qr_q if orth == "qr" else cholqr2_q
+    # Every product at HIGHEST: the blocks are small (bucket x subset),
+    # so full f32 costs little, and without it a GPU runs them in TF32
+    # (~3 decimal digits) that the local bases would carry into the
+    # condensed stage-2 matrix.
+    dot = functools.partial(jnp.dot, precision=jax.lax.Precision.HIGHEST)
     omega = jax.random.normal(key, (n, ell), dtype=x.dtype)
-    y = x @ omega  # (m, ell)
+    y = dot(x, omega)  # (m, ell)
     q = orth_q(y)
     for _ in range(n_power_iter):
-        z = x.T @ q  # (n, ell)
+        z = dot(x.T, q)  # (n, ell)
         z = orth_q(z)
-        y = x @ z
+        y = dot(x, z)
         q = orth_q(y)
-    b = q.T @ x  # (ell, n)
+    b = dot(q.T, x)  # (ell, n)
     ub, s, vt = jnp.linalg.svd(b, full_matrices=False)
-    u = q @ ub
+    u = dot(q, ub)
     return u[:, :k], s[:k], vt[:k, :]
 
 
@@ -117,7 +122,8 @@ def subspace_residual(b: jax.Array, t: jax.Array) -> jax.Array:
         b.T, t, preferred_element_type=jnp.float32,
         precision=jax.lax.Precision.HIGHEST,
     )
-    return jnp.linalg.norm(t - b @ proj) / (jnp.linalg.norm(t) + 1e-30)
+    fit = jnp.dot(b, proj, precision=jax.lax.Precision.HIGHEST)
+    return jnp.linalg.norm(t - fit) / (jnp.linalg.norm(t) + 1e-30)
 
 
 def sign_canonicalize(u: jax.Array, vt: jax.Array) -> Tuple[jax.Array, jax.Array]:

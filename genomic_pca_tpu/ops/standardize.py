@@ -12,8 +12,8 @@ zero-sigma rows forced to 0.  Differences by design:
 
 * The multiply-add uses the same factorization as the reference:
   g * inv_sigma + (-mu * inv_sigma), fused by XLA into the consuming
-  matmul where possible (Pallas kernel in ops/pallas_kernels.py fuses it
-  explicitly for the hot path).
+  products (the hot-path form, with the 2-bit unpack, is
+  ops/products.standardize).
 """
 
 from __future__ import annotations

@@ -2,13 +2,13 @@
 
 Two things live here:
 
-1. The jitted per-strip primitives `_strip_gram_apply` /
-   `_strip_right_apply` — the plain-XLA form of the fused
-   standardize-and-multiply pass, shared by the streaming container's
-   XLA fallback and the driver's compile-check entry.
+1. The jitted per-strip f32 primitives `_strip_gram_apply` /
+   `_strip_right_apply` — the reference form of the standardize-and-
+   multiply pass, used by `StripedMatrix` and the compile-check entry
+   (`__graft_entry__.entry`).
 2. `StripedMatrix` — the SIMPLEST implementation of the
    `ops.operator.StandardizedOperator` contract (a Python list of
-   device strips, no mesh, no Pallas, no prefetch).  It exists as the
+   device strips, f32 at HIGHEST, no mesh, no prefetch).  It exists as the
    independent, obviously-correct oracle the production containers
    (`parallel.sharded.ShardedMatrix`, `ops.streaming.StreamingMatrix`)
    are cross-checked against in tests; no production workflow
@@ -25,7 +25,7 @@ and its lazy block accessor (/root/reference/src/prepare.rs:1838-2029):
   (variants x samples), never materialized.  Standardization fuses into
   each consuming matmul (the XLA analog of the reference's fused SIMD
   standardize at prepare.rs:1946-2013).
-* Every product is expressed as a per-strip MXU matmul plus a sum over
+* Every product is expressed as a per-strip matmul plus a sum over
   strips, so the variant axis shards trivially: on a mesh, each shard
   owns its strips and partial results merge with `psum`
   (parallel/sharded.py).
@@ -52,11 +52,9 @@ from genomic_pca_tpu.ops.standardize import standardize_rows as _standardize
 
 MISSING = -127
 
-# f32 matmuls on the MXU default to a bf16-pass approximation; PCA
-# concordance (|r| > 0.999 per PC vs the f64 oracle) needs full f32
-# accumulation, so the streamed products pin HIGHEST precision.  The
-# int8-input Pallas kernel (ops/pallas_kernels.py) recovers the speed on
-# the hot path without the precision loss.
+# The reference products pin HIGHEST: without it an f32 matmul may run
+# reduced-precision passes (TF32 on a GPU), and this container is the
+# f32 yardstick the production products are checked against.
 _PRECISION = jax.lax.Precision.HIGHEST
 
 

@@ -1,18 +1,19 @@
-"""Variant-sharded streamed matrix: shard_map + Pallas + psum.
+"""Variant-sharded resident matrix: shard_map + XLA strip products + psum.
 
 The production container for the standardized genotype operator A (D x N):
 
-* Genotypes live as one 2-D int8 array (D_pad, N_pad) sharded over rows
-  on a 1-D mesh ("v"); per-SNP mean / inv_std columns shard identically.
-  Row padding carries inv_std = 0 (standardizes to zero); sample-column
-  padding is the missing sentinel -127 (standardizes to zero); sketch
-  columns pad with zeros.  All padding is mathematically inert.
-* Each pass runs under `shard_map`: the local row block goes through a
-  fused Pallas kernel (ops/pallas_kernels.py — int8 read straight into
-  VMEM, standardize on the VPU, both MXU matmuls in-place) or, off-TPU,
-  an XLA scan over strips; a single `psum` over "v" merges the small
-  condensed factors.  Only (N x l)/(l x l) blocks ever cross ICI.
-* On a 1-device mesh the same code is the optimized single-chip path.
+* Genotypes live as one 2-D array (D_pad, cols) sharded over rows on a
+  1-D mesh ("v"): int8 dosages, or PLINK 2-bit packed bytes (uint8).
+  Per-SNP mean / inv_std columns shard identically.  Row padding carries
+  inv_std = 0 (standardizes to zero); sample-column padding is the
+  missing sentinel (-127, or the 0x55 byte when packed; standardizes to
+  zero); sketch rows pad with zeros.  All padding is mathematically
+  inert.
+* Each pass runs under `shard_map`: the local row block goes through
+  the plain-XLA strip products of ops/products.py, and a single `psum`
+  over "v" merges the small condensed factors.  Only (N x l)/(l x l)
+  blocks cross between devices.
+* On a 1-device mesh the same code is the single-device path.
 
 This replaces the reference's rayon worker pools + flume channels
 (src/main.rs:103-106, src/prepare.rs:169-920) per SURVEY §2.3's
@@ -31,11 +32,10 @@ import numpy as np
 from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from genomic_pca_tpu.ops import pallas_kernels as pk
+from genomic_pca_tpu.ops import products
 from genomic_pca_tpu.ops.rsvd import (
     cholqr2_q, quantize_basis, subspace_residual,
 )
-from genomic_pca_tpu.ops.standardize import standardize_rows as _standardize
 from genomic_pca_tpu.parallel.mesh import VARIANT_AXIS, make_mesh
 
 log = logging.getLogger(__name__)
@@ -49,7 +49,7 @@ def resolve_q8_polish(
     """Exact-iteration count finishing a quantized power loop.
 
     The q8 steering passes approximate each missing genotype as raw 0
-    (a -u_i operator perturbation, ops/pallas_kernels.py q8 notes), so
+    (a -u_i operator perturbation, ops/products.py q8 notes), so
     the polish budget scales with how much missingness QC could have
     admitted: <=2% (the default 0.98 call-rate gate) is validated at one
     polish pass (|r| >= 0.99999 vs float64, tests/test_q8.py); looser
@@ -65,6 +65,11 @@ def resolve_q8_polish(
     if missing_fraction is not None and missing_fraction > 0.02:
         return 2
     return 1
+
+
+# Product precision of every container built without an explicit
+# `kernel_precision` (ops/products.py: "f32", "bf16" or "q8").
+DEFAULT_KERNEL_PRECISION = "q8"
 
 
 def _round_up(x: int, m: int) -> int:
@@ -85,16 +90,16 @@ def inv_std_of(s: np.ndarray) -> np.ndarray:
 # --- PLINK 2-bit packed layout helpers -------------------------------------
 # Packed mode stores genotypes in PLINK's on-disk 2-bit encoding (uint8,
 # 4 samples/byte, low bits first; count_A1 codes 00->2, 01->missing,
-# 10->1, 11->0): 4x less HBM capacity and read bandwidth, and BED bytes
-# upload verbatim.  See ops/pallas_kernels.py packed section for the
-# plane-major sample permutation the fused kernels impose.
+# 10->1, 11->0): 4x less device memory and read bandwidth, and BED bytes
+# upload verbatim.  Products unpack in original sample order
+# (ops/products.unpack_codes).
 
 PACKED_MISSING_BYTE = 0x55  # four 01 (missing) fields
 
 
 def packed_cols(n_samples: int) -> int:
-    """Device column count for packed rows: ceil(n/4) bytes padded to the
-    128-lane granularity.  THE canonical packed-width expression — the
+    """Device column count for packed rows: ceil(n/4) bytes padded to a
+    multiple of 128.  THE canonical packed-width expression — the
     capture budget gates, batch padding, and resident-size estimate must
     all agree with the actual device layout."""
     return _round_up(max(-(-n_samples // 4), 1), 128)
@@ -144,162 +149,6 @@ def sanitize_partial_byte(
     fill = PACKED_MISSING_BYTE & (0xFF ^ keep)
     packed[:, -1] = (packed[:, -1] & keep) | fill
     return packed
-
-
-def _unpack_planes_std(gg, m_col, iv_col):
-    """(S, n4) uint8 packed -> (S, 4*n4) f32 standardized, PLANE-MAJOR
-    sample order (XLA fallback analog of the packed Pallas kernels)."""
-    c = gg.astype(jnp.int32)
-    planes = []
-    for p in range(4):
-        cp = (c >> (2 * p)) & 3
-        x = ((4 - cp) >> 1).astype(jnp.float32) * iv_col + (-m_col * iv_col)
-        planes.append(jnp.where(cp != 1, x, 0.0))
-    return jnp.concatenate(planes, axis=1)
-
-
-def _dot(a, b):
-    return jnp.dot(
-        a, b, preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )
-
-
-def _default_mode() -> str:
-    return "pallas" if jax.devices()[0].platform == "tpu" else "xla"
-
-
-# VMEM budget for kernel working sets.  The 15.5 MiB floor is
-# calibrated against measured v5e limits: bf16 mode fits tile_d=1024 at
-# N=2048 but tile_d=2048 fails to compile; f32 mode fits tile_d=512 but
-# not 1024 (scripts/tune_kernels.py).  v4/v5-generation cores carry
-# ~16 MiB of VMEM (pallas guide); Trillium-class (v6e) doubles it, so
-# the budget scales by device kind.  Unknown kinds keep the
-# conservative floor — a smaller budget only shrinks tiles, it never
-# breaks compilation.
-_VMEM_FLOOR = int(15.5 * 1024 * 1024)
-
-
-@functools.lru_cache(maxsize=1)
-def vmem_budget_bytes() -> int:
-    """Per-core VMEM working-set budget derived from the device kind."""
-    try:
-        kind = jax.devices()[0].device_kind.lower()
-    except Exception:  # backend not initialized / no devices
-        return _VMEM_FLOOR
-    if "v6" in kind or "trillium" in kind:
-        return 2 * _VMEM_FLOOR
-    return _VMEM_FLOOR
-
-
-def auto_tile_d(
-    n_pad: int,
-    ell_pad: int = 128,
-    requested: int = 1024,
-    precision: str = "bf16",
-) -> int:
-    """Largest power-of-two row tile whose working set fits VMEM.
-
-    Per grid step the gram kernel holds the int8 tile (x2 pipeline
-    buffers) plus the standardize intermediates — bf16 mode is
-    compare-free and never materializes an f32 copy (6 B/element);
-    f32 mode does (10 B/element) — alongside B, its compute-dtype cast
-    and the (n_pad, ell) f32 accumulator.  At biobank sample counts
-    (n_pad ~ 500k) no row tile fits — callers fall back to the 2-D
-    tiled kernels (return 0).
-    """
-    if precision == "q8":
-        # int8 tile (x2 buffers) + the (tile_d, L) w/y/z/z8 intermediates
-        # + the int8 basis and f32 accumulator.  The q8 power body still
-        # builds the bf16 kernels for its polish/tsq/right passes, so
-        # take the tighter (bf16) tile — both fit at the same size for
-        # all practical (n_pad, ell) since the q8 working set is smaller.
-        precision = "bf16"
-    bf16 = precision != "f32"
-    fixed = n_pad * ell_pad * (4 + (2 if bf16 else 4)) + n_pad * ell_pad * 4
-    per_row = n_pad * ((2 * 1 + 2 + 2) if bf16 else (2 * 1 + 4 + 4))
-    budget = vmem_budget_bytes()
-    tile = min(requested, 2048)
-    while tile >= 32:
-        if fixed + tile * per_row <= budget:
-            return tile
-        tile //= 2
-    return 0
-
-
-# Default kernel precision of every container constructor; prepare.py's
-# capture-assembly paths read it so their padding granule can never
-# drift from the constructors' (raw-geno bit-identity across paths).
-DEFAULT_KERNEL_PRECISION = "q8"
-
-
-def _row_pad_tile(tile_d: int, kernel_precision: str, packed: bool) -> int:
-    """Row-padding granule for the sharded layout: PACKED q8 containers
-    pad to 2*tile_d so every shard stays divisible by the doubled q8
-    steering tile (_q8_packed_tile_d) regardless of the survivor count
-    — at most tile_d extra inert rows (~0.5 MB packed), bought back
-    many times over by the larger tile's rate.  Dense containers keep
-    the base granule: only the packed kernels take the doubled tile, so
-    dense doubling would add padding (and shift row distribution across
-    devices) for zero benefit."""
-    return tile_d * (2 if (packed and kernel_precision == "q8") else 1)
-
-
-def _grow_pow2_tile(d: int, base: int, cap: int, step_bytes) -> int:
-    """Shared doubling loop of the q8 tile choosers: the largest
-    power-of-two multiple of `base` that divides `d`, fits the VMEM
-    budget per `step_bytes(t)`, and does not exceed `cap`."""
-    budget = vmem_budget_bytes()
-    tile = base
-    t = base * 2
-    while t <= cap and d % t == 0:
-        if step_bytes(t) > budget:
-            break
-        tile = t
-        t *= 2
-    return tile
-
-
-def _q8_packed_tile_d(d_shard: int, n4: int, ell: int, base: int) -> int:
-    """Row tile for the 1-D packed q8 kernel: the largest power-of-two
-    multiple of `base` (the bf16 kernels' tile) that divides the shard
-    and fits VMEM, capped at 2048.
-
-    The q8 kernel's working set is SMALLER than bf16's at equal tile
-    (int8 planes, no f32 tile copy), so it can take a 2x-larger tile
-    than the shared bf16 sizing: fewer grid steps halve the per-step
-    (4*n4, ell) f32 accumulator traffic — measured 1.34 -> 1.27
-    ms/call at the bench shape (VALIDATION.md round 5).  Working set
-    per step: packed tile x2 pipeline buffers (2*t*n4) + unpacked
-    planes (4*t*n4) + w/y/z f32 and z8 (13*t*ell) + bq and the
-    double-buffered f32 accumulator (36*n4*ell)."""
-    return _grow_pow2_tile(
-        d_shard, base, 2048,
-        lambda t: 6 * t * n4 + 13 * t * ell + 36 * n4 * ell,
-    )
-
-
-def _q8_packed_tile_d_2d(d: int, tn4: int, ell: int, base: int) -> int:
-    """Row tile for the 2-D packed q8 kernels (right/left split): the
-    largest power-of-two multiple of `base` dividing the row count that
-    fits VMEM, capped at 4096.  The 2-D q8 kernels run the
-    standardization corrections in XLA between the two calls
-    (q8_power_pass_2d), so their in-kernel working set is the byte tile
-    (x2 pipeline buffers) + unpacked planes (6*t*tn4), the (t, L) w/z8
-    tiles (4*t*ell), and the larger of the two kernels' basis /
-    accumulator blocks — the LEFT kernel's (4*tn4, L) f32 accumulator
-    plus its int32 dot temp (32*tn4*ell) — measured: (4096, 512)
-    compiles and is 8% faster than (1024, 512); (2048, 2048-bytes)
-    correctly exceeds scoped VMEM.  The byte constants are calibrated
-    at the production ell = 128 only (models/pca.lane_fill_width), so
-    wider sketches keep the base tile rather than trusting the formula
-    outside its measured envelope."""
-    if ell > 128:
-        return base
-    return _grow_pow2_tile(
-        d, base, 4096,
-        lambda t: 5 * t * tn4 + 4 * t * ell + 32 * tn4 * ell,
-    )
 
 
 def _slice_blocks_impl(
@@ -352,8 +201,7 @@ def _slice_blocks_packed_impl(
     bucket: int,
 ) -> jax.Array:
     """Packed analog of `_slice_blocks_impl`: unpacks the sliced
-    rows in plain XLA (interleave reshape restores ORIGINAL sample
-    order — the Mosaic lane constraint does not apply outside Pallas)."""
+    rows in ORIGINAL sample order (interleave reshape)."""
     d_pad, n4 = geno.shape
 
     def one(start, d_b):
@@ -386,21 +234,20 @@ class ShardedMatrix:
 
     Implements `ops.operator.StandardizedOperator` (n_samples, n_rows,
     gram_apply, tsq_accumulate, right_apply) plus every optional fast
-    path (power_iterate, pca_core) — the production HBM-resident
+    path (power_iterate, pca_core) — the production device-resident
     container; see ops/operator.py for the container role split.
     """
 
     def __init__(
         self,
-        geno: jax.Array,  # (D_pad, N_pad) int8, P(v, None)
+        geno: jax.Array,  # (D_pad, N_pad) int8 / (D_pad, N4_pad) uint8, P(v, None)
         mean: jax.Array,  # (D_pad, 1) f32, P(v, None)
         inv_std: jax.Array,  # (D_pad, 1) f32, P(v, None)
         n_rows: int,
         n_samples: int,
         mesh: Mesh,
-        mode: Optional[str] = None,
         tile_d: int = 1024,
-        kernel_precision: str = "q8",
+        kernel_precision: Optional[str] = None,
         row_segments: Optional[np.ndarray] = None,
         q8_polish: Optional[int] = None,
         missing_fraction: Optional[float] = None,
@@ -422,61 +269,27 @@ class ShardedMatrix:
             assert row_segments.ndim == 2 and row_segments.shape[1] == 3
             assert int(row_segments[:, 2].sum()) == n_rows
         self.row_segments = row_segments
-        self.mode = mode or _default_mode()
+        kernel_precision = kernel_precision or DEFAULT_KERNEL_PRECISION
         self.kernel_precision = kernel_precision
+        self.exact_precision = products.exact_precision(kernel_precision)
         # uint8 genotypes signal the PLINK 2-bit packed layout: the
-        # sample axis is 4x the byte axis, and sample-indexed vectors
-        # ride in the kernels' plane-major permutation.
+        # sample axis is 4x the byte axis.
         self.packed = geno.dtype == jnp.uint8
         self.d_pad = geno.shape[0]
         self.n_pad = geno.shape[1] * 4 if self.packed else geno.shape[1]
-        if self.mode == "pallas":
-            fitted = auto_tile_d(
-                self.n_pad, requested=tile_d, precision=kernel_precision
-            )
-            if fitted == 0:
-                # Sample axis too wide for a full-row VMEM tile: switch
-                # to the 2-D tiled kernels (both axes blocked, small
-                # (D, L) intermediate in HBM).
-                self.mode = "pallas2d"
-            elif fitted != tile_d:
-                tile_d = fitted
+        # tile_d is the row-padding granule (every shard is a multiple);
+        # the products scan strips of `step` rows, a divisor of it.
         self.tile_d = tile_d
-        self.tile_n = self._pick_tile_n()
-        if self.packed:
-            # Sample-indexed vectors ride in the kernels' plane-major
-            # permutation: tile-local for the 2-D kernels (one byte tile
-            # of tile_n unpacks per grid step), global otherwise (the
-            # 1-D kernels and the XLA scan unpack full-width rows).
-            if self.mode.startswith("pallas2d"):
-                self._perm = pk.plane_major_perm_tiled(self.n_pad, self.tile_n)
-            else:
-                self._perm = pk.plane_major_perm(self.n_pad)
-            self._invp = np.argsort(self._perm)
-        if kernel_precision == "q8" and self.mode.startswith("pallas"):
+        self.step = products.strip_rows(self.n_pad, tile_d)
+        if kernel_precision == "q8":
             log.info(
-                "int8-MXU quantized power path active (mode=%s, packed=%s,"
-                " polish=%d exact pass%s; missing genotypes approximate to"
-                " raw 0 during steering iterations only).",
-                self.mode, self.packed, self.q8_polish,
+                "int8 quantized power path active (packed=%s, polish=%d "
+                "exact pass%s; missing genotypes approximate to raw 0 "
+                "during steering iterations only).",
+                self.packed, self.q8_polish,
                 "" if self.q8_polish == 1 else "es",
             )
         self._build_kernels()
-
-    def _pick_tile_n(self) -> int:
-        """Sample-axis tile for the 2-D kernels: the largest 128-multiple
-        divisor of the stored column count <= 2048 (dense) / 512 bytes
-        (packed — same 2048-sample unpacked footprint)."""
-        if self.packed:
-            n4 = self.geno.shape[1]
-            for cand in (512, 256, 128):
-                if n4 % cand == 0:
-                    return cand
-            return 128  # unreachable: packed_cols pads to 128 lanes
-        for cand in (2048, 1024, 512, 256, 128):
-            if self.n_pad % cand == 0:
-                return cand
-        return 128
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -487,9 +300,8 @@ class ShardedMatrix:
         strip_size: int = 2048,
         center_only: bool = False,
         mesh: Optional[Mesh] = None,
-        mode: Optional[str] = None,
         tile_d: int = 1024,
-        kernel_precision: str = "q8",
+        kernel_precision: Optional[str] = None,
         q8_polish: Optional[int] = None,
         missing_fraction: Optional[float] = None,
     ) -> "ShardedMatrix":
@@ -542,7 +354,7 @@ class ShardedMatrix:
 
         d_pad = _round_up(
             max(n_rows, 1),
-            _row_pad_tile(tile_d, kernel_precision, packed=False) * n_dev,
+            tile_d * n_dev,
         )
         n_pad = _round_up(n_samples, 128)
         g_pad = np.full((d_pad, n_pad), MISSING, dtype=np.int8)
@@ -560,7 +372,6 @@ class ShardedMatrix:
             n_rows=n_rows,
             n_samples=n_samples,
             mesh=mesh,
-            mode=mode,
             tile_d=tile_d,
             kernel_precision=kernel_precision,
             q8_polish=q8_polish,
@@ -574,9 +385,8 @@ class ShardedMatrix:
         n_rows: int,
         n_samples: int,
         mesh: Optional[Mesh] = None,
-        mode: Optional[str] = None,
         tile_d: int = 1024,
-        kernel_precision: str = "q8",
+        kernel_precision: Optional[str] = None,
         q8_polish: Optional[int] = None,
         missing_fraction: Optional[float] = None,
         center_only: bool = False,
@@ -598,7 +408,7 @@ class ShardedMatrix:
         n_dev = mesh.devices.size
         d_pad = _round_up(
             max(n_rows, 1),
-            _row_pad_tile(tile_d, kernel_precision, packed) * n_dev,
+            tile_d * n_dev,
         )
         n_pad = packed_cols(n_samples) if packed else _round_up(n_samples, 128)
         rows_per_dev = d_pad // n_dev
@@ -655,7 +465,6 @@ class ShardedMatrix:
             n_rows=n_rows,
             n_samples=n_samples,
             mesh=mesh,
-            mode=mode,
             tile_d=tile_d,
             kernel_precision=kernel_precision,
             q8_polish=q8_polish,
@@ -670,9 +479,8 @@ class ShardedMatrix:
         local_units,  # {unit_index: (geno, mean, std)} for units THIS process owns
         n_samples: int,
         mesh: Optional[Mesh] = None,
-        mode: Optional[str] = None,
         tile_d: int = 1024,
-        kernel_precision: str = "q8",
+        kernel_precision: Optional[str] = None,
         q8_polish: Optional[int] = None,
         missing_fraction: Optional[float] = None,
         packed: bool = False,
@@ -728,7 +536,7 @@ class ShardedMatrix:
             need = -(-int(totals[p]) // nd)
             rows_per_dev = max(rows_per_dev, need)
         rows_per_dev = _round_up(
-            rows_per_dev, _row_pad_tile(tile_d, kernel_precision, packed)
+            rows_per_dev, tile_d
         )
         d_pad = rows_per_dev * len(flat)
         n_pad = packed_cols(n_samples) if packed else _round_up(n_samples, 128)
@@ -798,7 +606,6 @@ class ShardedMatrix:
             n_rows=n_rows,
             n_samples=n_samples,
             mesh=mesh,
-            mode=mode,
             tile_d=tile_d,
             kernel_precision=kernel_precision,
             q8_polish=q8_polish,
@@ -814,9 +621,8 @@ class ShardedMatrix:
         std: np.ndarray,  # (D,) f32
         n_samples: int,
         mesh: Optional[Mesh] = None,
-        mode: Optional[str] = None,
         tile_d: int = 1024,
-        kernel_precision: str = "q8",
+        kernel_precision: Optional[str] = None,
         q8_polish: Optional[int] = None,
         missing_fraction: Optional[float] = None,
     ) -> "ShardedMatrix":
@@ -834,7 +640,7 @@ class ShardedMatrix:
         d = packed_rows.shape[0]
         d_pad = _round_up(
             max(d, 1),
-            _row_pad_tile(tile_d, kernel_precision, packed=True) * n_dev,
+            tile_d * n_dev,
         )
         n4_pad = packed_cols(n_samples)
         g_pad = np.full((d_pad, n4_pad), PACKED_MISSING_BYTE, dtype=np.uint8)
@@ -852,7 +658,6 @@ class ShardedMatrix:
             n_rows=d,
             n_samples=n_samples,
             mesh=mesh,
-            mode=mode,
             tile_d=tile_d,
             kernel_precision=kernel_precision,
             q8_polish=q8_polish,
@@ -868,9 +673,8 @@ class ShardedMatrix:
         std: np.ndarray,
         n_samples: int,
         mesh: Optional[Mesh] = None,
-        mode: Optional[str] = None,
         tile_d: int = 1024,
-        kernel_precision: str = "q8",
+        kernel_precision: Optional[str] = None,
         q8_polish: Optional[int] = None,
         missing_fraction: Optional[float] = None,
         strip_rows: int = 262_144,
@@ -896,7 +700,7 @@ class ShardedMatrix:
         n_dev = mesh.devices.size
         d_pad = _round_up(
             max(n_rows, 1),
-            _row_pad_tile(tile_d, kernel_precision, packed=True) * n_dev,
+            tile_d * n_dev,
         )
         n4_pad = packed_cols(n_samples)
         rows_per_dev = d_pad // n_dev
@@ -937,7 +741,6 @@ class ShardedMatrix:
             n_rows=n_rows,
             n_samples=n_samples,
             mesh=mesh,
-            mode=mode,
             tile_d=tile_d,
             kernel_precision=kernel_precision,
             q8_polish=q8_polish,
@@ -945,186 +748,15 @@ class ShardedMatrix:
         )
 
     # ------------------------------------------------------------------
-    def _local_ops(self):
-        """Local (per-shard) pass implementations for each backend mode."""
-        tile_d = self.tile_d
-        tile_n = self.tile_n
-        precision = self.kernel_precision
-        interpret = self.mode in ("pallas_interpret", "pallas2d_interpret")
-        # "q8" = bf16 everywhere EXCEPT the power-iteration body, which
-        # runs through the int8-MXU kernel (2x rate); the exact kernels
-        # below still serve polish/tsq/right and every user-visible
-        # product.
-        local_gram_q8 = None
-        if precision == "q8":
-            precision = "bf16"
-            if self.mode in ("pallas", "pallas_interpret"):
-                if self.packed:
-                    def local_gram_q8(g, iv, u, bq, sb, csum):
-                        # Shape-aware tile: g/bq shapes are static at
-                        # trace time, so the q8 tile can exceed the
-                        # shared bf16 tile when the shard and VMEM
-                        # allow (see _q8_packed_tile_d).
-                        t = _q8_packed_tile_d(
-                            g.shape[0], g.shape[1], bq.shape[1], tile_d
-                        )
-                        return pk.fused_gram_q8_packed(
-                            g, iv, u, bq, sb, csum, tile_d=t,
-                            interpret=interpret,
-                        )
-                else:
-                    def local_gram_q8(g, iv, u, bq, sb, csum):
-                        return pk.fused_gram_q8(
-                            g, iv, u, bq, sb, csum, tile_d=tile_d,
-                            interpret=interpret,
-                        )
-
-            elif self.mode in ("pallas2d", "pallas2d_interpret"):
-                # Biobank-wide sample axes: the W/T split through the
-                # 2-D tiled int8-MXU kernels, standardization
-                # corrections + per-row-tile re-quantization in XLA on
-                # the small (D, L) intermediate (pk.q8_power_pass_2d).
-                _is_packed = self.packed
-
-                def local_gram_q8(g, iv, u, bq, sb, csum):
-                    t = (
-                        _q8_packed_tile_d_2d(
-                            g.shape[0], tile_n, bq.shape[1], tile_d
-                        )
-                        if _is_packed
-                        else tile_d
-                    )
-                    return pk.q8_power_pass_2d(
-                        g, iv, u, bq, sb, csum, tile_d=t,
-                        tile_n=tile_n, interpret=interpret,
-                    )
-
-        if self.mode in ("pallas2d", "pallas2d_interpret"):
-            if self.packed:
-                right2d, left2d = (
-                    pk.fused_right_apply_2d_packed,
-                    pk.fused_left_apply_2d_packed,
-                )
-                tile_kw = dict(tile_d=tile_d, tile_n4=tile_n)
-            else:
-                right2d, left2d = pk.fused_right_apply_2d, pk.fused_left_apply_2d
-                tile_kw = dict(tile_d=tile_d, tile_n=tile_n)
-
-            def local_right(g, m, iv, b):
-                return right2d(
-                    g, m, iv, b, precision=precision, interpret=interpret,
-                    **tile_kw,
-                )
-
-            def local_gram(g, m, iv, b):
-                w = local_right(g, m, iv, b)
-                return left2d(
-                    g, m, iv, w, precision=precision, interpret=interpret,
-                    **tile_kw,
-                )
-
-            def local_tsq(g, m, iv, b):
-                w = local_right(g, m, iv, b)
-                return jnp.dot(
-                    w.T, w, preferred_element_type=jnp.float32,
-                    precision=jax.lax.Precision.HIGHEST,
-                )
-
-        elif self.mode in ("pallas", "pallas_interpret"):
-            if self.packed:
-                gram_fn, tsq_fn, right_fn = (
-                    pk.fused_gram_apply_packed,
-                    pk.fused_tsq_packed,
-                    pk.fused_right_apply_packed,
-                )
-            else:
-                gram_fn, tsq_fn, right_fn = (
-                    pk.fused_gram_apply, pk.fused_tsq, pk.fused_right_apply
-                )
-
-            def local_gram(g, m, iv, b):
-                return gram_fn(
-                    g, m, iv, b, tile_d=tile_d, precision=precision,
-                    interpret=interpret,
-                )
-
-            def local_tsq(g, m, iv, b):
-                return tsq_fn(
-                    g, m, iv, b, tile_d=tile_d, precision=precision,
-                    interpret=interpret,
-                )
-
-            def local_right(g, m, iv, b):
-                return right_fn(
-                    g, m, iv, b, tile_d=tile_d, precision=precision,
-                    interpret=interpret,
-                )
-
-        else:  # "xla": strip-scan fallback, f32 HIGHEST
-            packed = self.packed
-
-            def _scan(g, m, iv, b, want: str):
-                d_loc = g.shape[0]
-                n_strips = d_loc // tile_d
-                g3 = g.reshape(n_strips, tile_d, g.shape[1])
-                m2 = m.reshape(n_strips, tile_d)
-                i2 = iv.reshape(n_strips, tile_d)
-
-                def std(gg, mm, ii):
-                    # Packed strips standardize into the same plane-major
-                    # sample order the Pallas kernels use, so b/outputs
-                    # share one permutation convention across modes.
-                    if packed:
-                        return _unpack_planes_std(
-                            gg, mm[:, None], ii[:, None]
-                        )
-                    return _standardize(gg, mm, ii)
-
-                if want == "right":
-                    def body(_, xs):
-                        gg, mm, ii = xs
-                        return None, _dot(std(gg, mm, ii), b)
-
-                    _, out = jax.lax.scan(body, None, (g3, m2, i2))
-                    return out.reshape(d_loc, b.shape[1])
-
-                shape = (
-                    (b.shape[0], b.shape[1]) if want == "gram"
-                    else (b.shape[1], b.shape[1])
-                )
-
-                def body(acc, xs):
-                    gg, mm, ii = xs
-                    a = std(gg, mm, ii)
-                    w = _dot(a, b)
-                    if want == "gram":
-                        return acc + _dot(a.T, w), None
-                    return acc + _dot(w.T, w), None
-
-                acc, _ = jax.lax.scan(
-                    body, jnp.zeros(shape, jnp.float32), (g3, m2, i2)
-                )
-                return acc
-
-            def local_gram(g, m, iv, b):
-                return _scan(g, m[:, 0], iv[:, 0], b, "gram")
-
-            def local_tsq(g, m, iv, b):
-                return _scan(g, m[:, 0], iv[:, 0], b, "tsq")
-
-            def local_right(g, m, iv, b):
-                return _scan(g, m[:, 0], iv[:, 0], b, "right")
-
-        return local_gram, local_tsq, local_right, local_gram_q8
-
     def _build_kernels(self) -> None:
         mesh = self.mesh
         vspec = P(VARIANT_AXIS, None)
         rep = P(None, None)
-        local_gram, local_tsq, local_right, local_gram_q8 = self._local_ops()
+        prec = self.exact_precision
+        step = self.step
 
-        # check_vma=False: pallas_call outputs carry no varying-manual-axes
-        # annotation, which the vma type check can't see through.
+        # check_vma=False: the products' scan carries start as unvarying
+        # zeros, which the varying-manual-axes check rejects.
         smap = functools.partial(
             shard_map,
             mesh=mesh,
@@ -1134,39 +766,38 @@ class ShardedMatrix:
 
         @functools.partial(smap, out_specs=rep)
         def gram_sm(g, m, iv, b):
-            return jax.lax.psum(local_gram(g, m, iv, b), VARIANT_AXIS)
+            return jax.lax.psum(
+                products.gram(g, m, iv, b, precision=prec, step=step),
+                VARIANT_AXIS,
+            )
 
         @functools.partial(smap, out_specs=rep)
         def tsq_sm(g, m, iv, b):
-            return jax.lax.psum(local_tsq(g, m, iv, b), VARIANT_AXIS)
-
-        if local_gram_q8 is not None:
-            @functools.partial(
-                shard_map,
-                mesh=mesh,
-                in_specs=(vspec, vspec, vspec, rep, rep, rep),
-                out_specs=rep,
-                check_vma=False,
+            return jax.lax.psum(
+                products.tsq(g, m, iv, b, precision=prec, step=step),
+                VARIANT_AXIS,
             )
-            def gram_q8_sm(g, m, iv, bq, sb, csum):
-                u = m * iv  # (d_loc, 1), cheap per-shard
-                o, ru = local_gram_q8(g, iv, u, bq, sb, csum)
-                # T = G0^T(s.y) - 1 (u^T y): the rank-1 term broadcasts
-                # over sample rows, so fold it before the psum.
-                return jax.lax.psum(o - ru, VARIANT_AXIS)
+
+        @functools.partial(
+            shard_map,
+            mesh=mesh,
+            in_specs=(vspec, vspec, vspec, rep, rep, rep),
+            out_specs=rep,
+            check_vma=False,
+        )
+        def gram_q8_sm(g, m, iv, bq, sb, csum):
+            return jax.lax.psum(
+                products.gram_q8(g, iv, m * iv, bq, sb, csum, step=step),
+                VARIANT_AXIS,
+            )
 
         @functools.partial(smap, out_specs=vspec)
         def right_sm(g, m, iv, b):
-            return local_right(g, m, iv, b)
+            return products.right(g, m, iv, b, precision=prec, step=step)
 
         # A^T W with W variant-sharded like the genotypes: the device
         # path for projecting NEW samples through fitted loadings
-        # (PCA::transform, main.rs:659-660).  One pass, not a hot loop,
-        # so a fused XLA strip scan (full-row unpack for packed data)
-        # suffices on every backend mode.
-        lt_tile = self.tile_d
-        lt_packed = self.packed
-
+        # (PCA::transform, main.rs:659-660).
         @functools.partial(
             shard_map,
             mesh=mesh,
@@ -1175,104 +806,50 @@ class ShardedMatrix:
             check_vma=False,
         )
         def left_sm(g, m, iv, w):
-            d_loc = g.shape[0]
-            n_strips = d_loc // lt_tile
-            g3 = g.reshape(n_strips, lt_tile, g.shape[1])
-            m3 = m.reshape(n_strips, lt_tile, 1)
-            i3 = iv.reshape(n_strips, lt_tile, 1)
-            w3 = w.reshape(n_strips, lt_tile, w.shape[1])
-            cols = (4 * g.shape[1]) if lt_packed else g.shape[1]
-
-            def body(acc, xs):
-                gg, mm, ii, ww = xs
-                if lt_packed:
-                    a = _unpack_planes_std(gg, mm, ii)  # plane-major
-                else:
-                    a = _standardize(gg, mm[:, 0], ii[:, 0])
-                return acc + _dot(a.T, ww), None
-
-            acc, _ = jax.lax.scan(
-                body, jnp.zeros((cols, w.shape[1]), jnp.float32),
-                (g3, m3, i3, w3),
+            return jax.lax.psum(
+                products.left(g, m, iv, w, step=step), VARIANT_AXIS
             )
-            return jax.lax.psum(acc, VARIANT_AXIS)
 
         n_samples = self.n_samples
         n_pad = self.n_pad
-        pallas = self.mode.startswith("pallas")
-        packed = self.packed
-        if packed:
-            # Trace-time constants: the kernels' plane-major sample
-            # permutation and its inverse (ops/pallas_kernels.py).
-            perm_np = self._perm
-            invp_np = self._invp
-            # 1.0 at permuted positions holding a REAL sample (defensive
-            # zeroing of padding rows inside the power loop).
-            pmask_np = (perm_np < n_samples).astype(np.float32)[:, None]
 
         def pad_b(b):
             n, ell = b.shape
-            ell_pad = _round_up(ell, 128) if pallas else ell
-            out = jnp.zeros((n_pad, ell_pad), dtype=jnp.float32)
-            out = out.at[:n, :ell].set(b)
-            if packed:
-                out = jnp.take(out, jnp.asarray(perm_np), axis=0)
-            return out
-
-        def unperm(t):
-            """Permuted sample rows -> original order (packed only)."""
-            if packed:
-                return jnp.take(t, jnp.asarray(invp_np), axis=0)
-            return t
+            out = jnp.zeros((n_pad, ell), dtype=jnp.float32)
+            return out.at[:n, :].set(b)
 
         # Fully-jitted wrappers: padding, the sharded pass, and the
-        # un-padding slice form ONE executable each — a single device
-        # dispatch per pass (vital on high-latency relayed backends).
+        # un-padding slice form ONE executable each.
         @jax.jit
         def gram_k(g, m, iv, b):
-            ell = b.shape[1]
-            return unperm(gram_sm(g, m, iv, pad_b(b)))[:n_samples, :ell]
+            return gram_sm(g, m, iv, pad_b(b))[:n_samples]
 
         @jax.jit
         def tsq_k(g, m, iv, b):
-            ell = b.shape[1]
-            return tsq_sm(g, m, iv, pad_b(b))[:ell, :ell]
+            return tsq_sm(g, m, iv, pad_b(b))
 
         @jax.jit
         def right_k(g, m, iv, b):
-            ell = b.shape[1]
-            return right_sm(g, m, iv, pad_b(b))[:, :ell]
-
-        if packed:
-            # left_sm unpacks FULL-width rows, so its sample axis rides
-            # the full plane-major permutation regardless of the
-            # container's (possibly tile-local) hot-path perm.
-            invp_full = np.argsort(pk.plane_major_perm(n_pad))
+            return right_sm(g, m, iv, pad_b(b))
 
         @jax.jit
         def left_k(g, m, iv, w):
-            out = left_sm(g, m, iv, w)
-            if packed:
-                out = jnp.take(out, jnp.asarray(invp_full), axis=0)
-            return out[:n_samples]
+            return left_sm(g, m, iv, w)[:n_samples]
 
-        # Two-pass Cholesky-QR: MXU-only orthonormalization between
-        # power-iteration steps (ops/rsvd.cholqr2_q — one shared
-        # implementation with the fused stage-1 rSVD stabilizer).
-        # Callers needing exact orthonormality run one final Householder
-        # QR outside the loop.
+        # Two-pass Cholesky-QR between power-iteration steps
+        # (ops/rsvd.cholqr2_q — one shared implementation with the fused
+        # stage-1 rSVD stabilizer).  Callers needing exact
+        # orthonormality run one final Householder QR outside the loop.
         cholqr2 = cholqr2_q
 
         def zero_pad_rows(t):
-            if packed:
-                return t * jnp.asarray(pmask_np)
             return t.at[n_samples:, :].set(0.0)
 
-        use_q8 = local_gram_q8 is not None
+        use_q8 = self.kernel_precision == "q8"
         # With q8 enabled the LAST power iteration(s) always run through
-        # the exact bf16 kernel: the quantized passes only steer the
+        # the exact bf16 products: the quantized passes only steer the
         # subspace (8-bit rounding + the missing->raw-0 approximation,
-        # ops/pallas_kernels.py q8 notes); the exact polish passes before
+        # ops/products.py q8 notes); the exact polish passes before
         # the Rayleigh-Ritz restore bf16-path quality (|r| >= 0.99999 vs
         # float64, tests/test_q8.py; count resolved per the observed
         # missingness bound — `resolve_q8_polish`).
@@ -1346,39 +923,32 @@ class ShardedMatrix:
             out, n_done = power_loop(g, m, iv, pad_b(b), n_iter, tol)
             # One exact Householder QR to finish.
             q, _ = jnp.linalg.qr(out)
-            return unperm(q)[:n_samples, : b.shape[1]], n_done
+            return q[:n_samples], n_done
 
         # The ENTIRE randomized PCA as one XLA program: power iterations,
-        # condensed eigensolve, scores, and (variant-sharded) loadings.
-        # On remote-compile backends each program costs minutes to build,
-        # so one fused program beats three (power/tsq/right) by ~3x in
-        # end-to-end compile time and saves the intermediate dispatches.
+        # condensed eigensolve, scores, and (variant-sharded) loadings —
+        # one compile and one dispatch instead of three.
         @functools.partial(jax.jit, static_argnames=("n_iter", "k", "tol"))
         def pca_core_k(g, m, iv, b, n_iter, k, tol=None):
             out, n_done = power_loop(g, m, iv, pad_b(b), n_iter, tol)
-            q, _ = jnp.linalg.qr(out)  # (n_pad, l_pad) orthonormal
-            gram = tsq_sm(g, m, iv, q)  # (l_pad, l_pad)
-            ell = b.shape[1]
-            gram = gram[:ell, :ell]
+            q, _ = jnp.linalg.qr(out)  # (n_pad, ell) orthonormal
+            gram = tsq_sm(g, m, iv, q)  # (ell, ell)
             evals, w = jnp.linalg.eigh(gram)
             order = jnp.argsort(-evals)
             evals = jnp.maximum(evals[order], 0.0)
             w = w[:, order]
             sigma = jnp.sqrt(evals)
-            v_full = q[:, :ell] @ w  # (n_pad, ell) right singular vectors
+            # (n_pad, ell) right singular vectors, HIGHEST: they are the
+            # user-visible scores.
+            v_full = jnp.dot(q, w, precision=jax.lax.Precision.HIGHEST)
             v_k = v_full[:, :k]
             # loadings U = A V / sigma, variant-sharded output
-            vp = jnp.zeros((q.shape[0], _round_up(k, 128) if pallas else k),
-                           dtype=jnp.float32)
-            vp = vp.at[:, :k].set(v_k)
-            c = right_sm(g, m, iv, vp)[:, :k]  # (d_pad, k) = A V
+            c = right_sm(g, m, iv, v_k)  # (d_pad, k) = A V
             inv_sigma = jnp.where(sigma[:k] > 0, 1.0 / jnp.where(
                 sigma[:k] > 0, sigma[:k], 1.0), 0.0)
             loadings = c * inv_sigma[None, :]
             return (
-                # right singular vectors (N, k); v_full rides in permuted
-                # sample order on the packed path (q never left it)
-                unperm(v_full)[:n_samples, :k],
+                v_k[:n_samples],  # right singular vectors (N, k)
                 sigma[:k],
                 evals[:k],
                 loadings,  # (d_pad, k), caller slices rows

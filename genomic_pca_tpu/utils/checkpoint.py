@@ -1,7 +1,7 @@
 """Stage checkpointing for preemptible EigenSNP runs.
 
 The reference has no checkpoint/resume (SURVEY §5 — single-shot batch
-tool).  On preemptible TPU capacity the expensive stages (per-block local
+tool).  On preemptible capacity the expensive stages (per-block local
 bases, global basis, refinement passes) are worth persisting: this module
 writes each stage's arrays + a config fingerprint to `.npz` files so an
 interrupted run resumes at the last completed stage.

@@ -1,7 +1,7 @@
 """Device profiling hooks.
 
 The reference's profiling story is samply + PGO on the host binary
-(/root/reference/README.md:143-173); the TPU-native analog is
+(/root/reference/README.md:143-173); the analog here is
 `jax.profiler` traces viewable in XProf/TensorBoard, plus the throughput
 counters the workflows log (SNPs/sec, stage timings).
 """

@@ -1,6 +1,6 @@
 // Native host-side decoders for the genomic_pca_tpu data path.
 //
-// TPU-native equivalents of the reference's native ingest dependencies:
+// Equivalents of the reference's native ingest dependencies:
 //  * bed-reader (PLINK .bed 2-bit decode, /root/reference/src/prepare.rs:622-629)
 //  * noodles-vcf GT tokenization (/root/reference/src/vcf.rs:103-279)
 //

@@ -1,11 +1,11 @@
-"""End-to-end TPU validation at realistic scale.
+"""End-to-end validation at realistic scale.
 
 Generates a chr22-class synthetic PLINK dataset (structured populations),
 runs the full EigenSNP pipeline on the attached accelerator, and checks
 per-PC score concordance |r| against the float64 exact Gram-PCA oracle —
 the BASELINE.md acceptance bar (|r| > 0.999, sign-flip invariant).
 
-Usage: python scripts/validate_tpu.py [--snps 100000] [--samples 2500]
+Usage: python scripts/validate_scale.py [--snps 100000] [--samples 2500]
 Prints a JSON summary line at the end.
 """
 
@@ -29,7 +29,7 @@ from genomic_pca_tpu.models.eigensnp import compute_eigensnp_pca  # noqa: E402
 from genomic_pca_tpu.models.exact import exact_pca_from_strips  # noqa: E402
 from genomic_pca_tpu.models.prepare import prepare_data  # noqa: E402
 
-log = logging.getLogger("validate_tpu")
+log = logging.getLogger("validate_scale")
 
 
 def make_structured(rng, n_snps, n_samples, n_pops=6, fst=0.15, missing=0.005):

@@ -69,8 +69,8 @@ def test_eigensnp_resume_identical(tmp_path, rng):
 def test_eigensnp_stop_after_checkpoint_chain(tmp_path, rng):
     """A stop-after chain (stage2_basis -> refine_pass_0 -> completion)
     reproduces the single-invocation checkpointed run exactly — the
-    split-process composition used to bound per-process memory on relay
-    backends (and to survive scheduled preemption)."""
+    split-process composition used to bound per-process memory (and to
+    survive scheduled preemption)."""
     prep = _setup(tmp_path, rng)
     algo = EigenSnpConfig(
         k_global=3, min_subset_size=10, refine_passes=1, snp_strip_size=128

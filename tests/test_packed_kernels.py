@@ -1,117 +1,18 @@
-"""Packed 2-bit kernels vs the dense int8 kernels (interpret mode).
+"""Packed (PLINK 2-bit) containers vs the int8 containers.
 
-The packed kernels consume PLINK 2-bit bytes directly and emit sample-
-indexed results in plane-major permuted order; with the permutation
-applied they must match the int8 kernels exactly in f32 mode.
+Packed genotypes upload as raw BED bytes and unpack in original sample
+order inside the products (ops/products.py); with f32 products every
+pass must match the int8 container to accumulation noise.
 """
 
-import numpy as np
-import pytest
-
-from genomic_pca_tpu.ops import pallas_kernels as pk
-
-from genomic_pca_tpu.parallel.sharded import pack_int8_rows as pack_rows
-
-
-@pytest.fixture
-def data(rng):
-    d, n = 64, 512  # n4 = 128 lanes
-    geno = rng.integers(0, 3, size=(d, n)).astype(np.int8)
-    geno[rng.random((d, n)) < 0.05] = -127
-    mean = geno.astype(np.float64)
-    mean = np.where(geno == -127, np.nan, mean)
-    mu = np.nanmean(mean, axis=1).astype(np.float32)
-    sd = np.nanstd(mean, axis=1).astype(np.float32) + 0.1
-    inv = (1.0 / sd).astype(np.float32)
-    b = rng.standard_normal((n, 128)).astype(np.float32)
-    return geno, mu[:, None], inv[:, None], b
-
-
-def test_plane_major_perm_roundtrip():
-    perm = pk.plane_major_perm(512)
-    assert sorted(perm.tolist()) == list(range(512))
-    inv = np.argsort(perm)
-    x = np.arange(512)
-    assert np.array_equal(x[perm][inv], x)
-
-
-def test_packed_gram_matches_int8(data):
-    geno, mu, inv, b = data
-    packed = pack_rows(geno)
-    perm = pk.plane_major_perm(geno.shape[1])
-    invp = np.argsort(perm)
-
-    t_ref = np.asarray(pk.fused_gram_apply(
-        geno, mu, inv, b, tile_d=32, precision="f32", interpret=True
-    ))
-    t_pk = np.asarray(pk.fused_gram_apply_packed(
-        packed, mu, inv, b[perm], tile_d=32, precision="f32", interpret=True
-    ))[invp]
-    np.testing.assert_allclose(t_pk, t_ref, rtol=1e-2, atol=1e-3)
-
-
-def test_packed_right_matches_int8(data):
-    geno, mu, inv, b = data
-    packed = pack_rows(geno)
-    perm = pk.plane_major_perm(geno.shape[1])
-
-    w_ref = np.asarray(pk.fused_right_apply(
-        geno, mu, inv, b, tile_d=32, precision="f32", interpret=True
-    ))
-    w_pk = np.asarray(pk.fused_right_apply_packed(
-        packed, mu, inv, b[perm], tile_d=32, precision="f32", interpret=True
-    ))
-    np.testing.assert_allclose(w_pk, w_ref, rtol=1e-2, atol=1e-3)
-
-
-def test_packed_tsq_matches_int8(data):
-    geno, mu, inv, b = data
-    packed = pack_rows(geno)
-    perm = pk.plane_major_perm(geno.shape[1])
-
-    g_ref = np.asarray(pk.fused_tsq(
-        geno, mu, inv, b, tile_d=32, precision="f32", interpret=True
-    ))
-    g_pk = np.asarray(pk.fused_tsq_packed(
-        packed, mu, inv, b[perm], tile_d=32, precision="f32", interpret=True
-    ))
-    # (L, L) entries are O(d*n) contractions; near-zero entries carry
-    # cancellation error, so the tolerance is absolute-dominated.
-    np.testing.assert_allclose(g_pk, g_ref, rtol=1e-2, atol=2e-2)
-
-
-def test_packed_column_padding_inert(rng):
-    """Samples beyond N (pad bytes 0x55 = missing) contribute nothing."""
-    d, n = 32, 500  # not a multiple of 4
-    geno = rng.integers(0, 3, size=(d, n)).astype(np.int8)
-    packed = pack_rows(geno)  # pads to 125 bytes (500 samples even) -> 125*4=500
-    n_pad = packed.shape[1] * 4
-    mu = np.full((d, 1), 0.5, np.float32)
-    inv = np.full((d, 1), 1.0, np.float32)
-    b = rng.standard_normal((n_pad, 128)).astype(np.float32)
-
-    w_pk = np.asarray(pk.fused_right_apply_packed(
-        packed, mu, inv, b[pk.plane_major_perm(n_pad)],
-        tile_d=32, precision="f32", interpret=True,
-    ))
-    # int8 reference with explicit missing-padded columns
-    geno_pad = np.full((d, n_pad), -127, dtype=np.int8)
-    geno_pad[:, :n] = geno
-    w_ref = np.asarray(pk.fused_right_apply(
-        geno_pad, mu, inv, b, tile_d=32, precision="f32", interpret=True
-    ))
-    np.testing.assert_allclose(w_pk, w_ref, rtol=1e-2, atol=1e-3)
-
-
-# ---------------------------------------------------------------------------
-# Packed ShardedMatrix vs int8 ShardedMatrix (xla fallback mode on CPU).
-
-import jax
 import jax.numpy as jnp
+import numpy as np
 
 from genomic_pca_tpu.parallel.mesh import make_mesh
 from genomic_pca_tpu.parallel.sharded import ShardedMatrix, pack_int8_rows
+from genomic_pca_tpu.parallel.sharded import pack_int8_rows as pack_rows
 from tests.conftest import make_genotypes
+
 
 
 def _pair(rng, d=300, n=70, tile_d=32):
@@ -120,14 +21,11 @@ def _pair(rng, d=300, n=70, tile_d=32):
     mu = np.nan_to_num(np.nanmean(mean, axis=1)).astype(np.float32)
     sd = np.nan_to_num(np.nanstd(mean, axis=1, ddof=1)).astype(np.float32)
     mesh = make_mesh()
+    kw = dict(mesh=mesh, tile_d=tile_d, kernel_precision="f32")
     sm_i = ShardedMatrix.from_arrays(
-        iter([geno]), means=[mu], stds=[sd], mesh=mesh, mode="xla",
-        tile_d=tile_d,
+        iter([geno]), means=[mu], stds=[sd], **kw
     )
-    sm_p = ShardedMatrix.from_packed_rows(
-        pack_int8_rows(geno), mu, sd, n, mesh=mesh, mode="xla",
-        tile_d=tile_d,
-    )
+    sm_p = ShardedMatrix.from_packed_rows(pack_int8_rows(geno), mu, sd, n, **kw)
     assert sm_p.packed and not sm_i.packed
     return sm_i, sm_p
 
@@ -189,31 +87,6 @@ def test_packed_fetch_blocks_and_missing(rng):
     np.testing.assert_allclose(bp, bi, rtol=1e-5, atol=1e-5)
 
 
-def test_packed_pallas_interpret_matches_xla(rng):
-    """Packed Pallas kernels (interpret) agree with the packed XLA scan."""
-    geno = make_genotypes(rng, 128, 40, missing_rate=0.05)
-    mesh = make_mesh(jax.devices()[:1])
-    kw = dict(mesh=mesh, tile_d=32, kernel_precision="f32")
-    sm_x = ShardedMatrix.from_packed_rows(
-        pack_int8_rows(geno), np.zeros(128, np.float32) + 0.5,
-        np.ones(128, np.float32), 40, mode="xla", **kw,
-    )
-    sm_p = ShardedMatrix.from_packed_rows(
-        pack_int8_rows(geno), np.zeros(128, np.float32) + 0.5,
-        np.ones(128, np.float32), 40, mode="pallas_interpret", **kw,
-    )
-    b = jnp.asarray(
-        np.random.default_rng(7).standard_normal((40, 5)), jnp.float32
-    )
-    np.testing.assert_allclose(
-        np.asarray(sm_p.gram_apply(b)), np.asarray(sm_x.gram_apply(b)),
-        rtol=1e-4, atol=1e-4,
-    )
-    np.testing.assert_allclose(
-        sm_p.right_apply(b), sm_x.right_apply(b), rtol=1e-4, atol=1e-4
-    )
-
-
 def test_pack_int8_rows_trailing_fields_missing(rng):
     """Trailing 2-bit fields of a partial last byte must be the inert
     01 (missing) code, not PLINK's zero-fill (00 = dosage 2)."""
@@ -253,113 +126,3 @@ def test_from_packed_strips_matches_from_packed_rows(rng):
     np.testing.assert_array_equal(
         np.asarray(sm_a.inv_std), np.asarray(sm_b.inv_std)
     )
-
-
-# ---------------------------------------------------------------------------
-# 2-D tiled packed kernels (wide sample axes).
-
-
-def test_plane_major_perm_tiled():
-    """Tiled perm is a permutation; tile_n4 == n4 reduces to global."""
-    perm = pk.plane_major_perm_tiled(1024, 128)  # n4=256, 2 tiles
-    assert sorted(perm.tolist()) == list(range(1024))
-    np.testing.assert_array_equal(
-        pk.plane_major_perm_tiled(512, 128), pk.plane_major_perm(512)
-    )
-    # position k = t*4*tile + p*tile + j holds sample 4*(t*tile+j)+p
-    assert perm[0] == 0          # t=0 p=0 j=0 -> sample 0
-    assert perm[128] == 1        # t=0 p=1 j=0 -> sample 1
-    assert perm[512] == 512      # t=1 p=0 j=0 -> sample 4*128 = 512
-    assert perm[513] == 516      # t=1 p=0 j=1 -> sample 4*129 = 516
-
-
-@pytest.fixture
-def data2d(rng):
-    d, n = 64, 1024  # n4 = 256 bytes -> two 128-byte tiles
-    geno = rng.integers(0, 3, size=(d, n)).astype(np.int8)
-    geno[rng.random((d, n)) < 0.05] = -127
-    mean = np.where(geno == -127, np.nan, geno.astype(np.float64))
-    mu = np.nanmean(mean, axis=1).astype(np.float32)
-    sd = np.nanstd(mean, axis=1).astype(np.float32) + 0.1
-    inv = (1.0 / sd).astype(np.float32)
-    b = rng.standard_normal((n, 128)).astype(np.float32)
-    return geno, mu[:, None], inv[:, None], b
-
-
-def test_packed_2d_right_matches_dense(data2d):
-    geno, mu, inv, b = data2d
-    packed = pack_rows(geno)
-    perm = pk.plane_major_perm_tiled(geno.shape[1], 128)
-
-    w_ref = np.asarray(pk.fused_right_apply(
-        geno, mu, inv, b, tile_d=32, precision="f32", interpret=True
-    ))
-    w_pk = np.asarray(pk.fused_right_apply_2d_packed(
-        packed, mu, inv, b[perm], tile_d=32, tile_n4=128,
-        precision="f32", interpret=True,
-    ))
-    np.testing.assert_allclose(w_pk, w_ref, rtol=1e-2, atol=1e-3)
-
-
-def test_packed_2d_left_matches_dense(data2d):
-    geno, mu, inv, b = data2d
-    packed = pack_rows(geno)
-    perm = pk.plane_major_perm_tiled(geno.shape[1], 128)
-    invp = np.argsort(perm)
-    w = np.asarray(pk.fused_right_apply(
-        geno, mu, inv, b, tile_d=32, precision="f32", interpret=True
-    ))
-
-    t_ref = np.asarray(pk.fused_left_apply_2d(
-        geno, mu, inv, w, tile_d=32, tile_n=512,
-        precision="f32", interpret=True,
-    ))
-    t_pk = np.asarray(pk.fused_left_apply_2d_packed(
-        packed, mu, inv, w, tile_d=32, tile_n4=128,
-        precision="f32", interpret=True,
-    ))[invp]
-    np.testing.assert_allclose(t_pk, t_ref, rtol=1e-2, atol=1e-3)
-
-
-def test_packed_sharded_pallas2d_matches_xla(rng):
-    """Full ShardedMatrix on the packed 2-D path (multi-tile perm) ==
-    packed XLA scan, through every public pass incl. pca_core."""
-    d, n = 128, 2100  # packed_cols -> 640 bytes? no: 525 -> 640; tile 128
-    geno = make_genotypes(rng, d, n, missing_rate=0.03, n_pops=3, fst=0.2)
-    mean = np.where(geno == -127, np.nan, geno.astype(np.float64))
-    mu = np.nan_to_num(np.nanmean(mean, axis=1)).astype(np.float32)
-    sd = np.nan_to_num(np.nanstd(mean, axis=1, ddof=1)).astype(np.float32)
-    mesh = make_mesh(jax.devices()[:1])
-    kw = dict(mesh=mesh, tile_d=32, kernel_precision="f32")
-    sm_x = ShardedMatrix.from_packed_rows(
-        pack_int8_rows(geno), mu, sd, n, mode="xla", **kw,
-    )
-    sm_p = ShardedMatrix.from_packed_rows(
-        pack_int8_rows(geno), mu, sd, n, mode="pallas2d_interpret", **kw,
-    )
-    assert sm_p.geno.shape[1] // sm_p.tile_n >= 2, "want a multi-tile perm"
-    b = jnp.asarray(
-        np.random.default_rng(8).standard_normal((n, 6)), jnp.float32
-    )
-    # tolerances absorb f32 accumulation-order noise (the 2-D split
-    # reduces in a different order than the XLA scan), as in the dense
-    # pallas2d test
-    np.testing.assert_allclose(
-        np.asarray(sm_p.gram_apply(b)), np.asarray(sm_x.gram_apply(b)),
-        rtol=1e-4, atol=1e-2,
-    )
-    np.testing.assert_allclose(
-        np.asarray(sm_p.tsq_accumulate(b)),
-        np.asarray(sm_x.tsq_accumulate(b)), rtol=1e-4, atol=1e-1,
-    )
-    np.testing.assert_allclose(
-        sm_p.right_apply(b), sm_x.right_apply(b), rtol=1e-4, atol=1e-2
-    )
-    v_x, s_x, e_x, l_x = sm_x.pca_core(b, 3, 4)
-    v_p, s_p, e_p, l_p = sm_p.pca_core(b, 3, 4)
-    np.testing.assert_allclose(np.asarray(s_p), np.asarray(s_x), rtol=1e-4)
-    for j in range(4):
-        r = np.corrcoef(np.asarray(v_x)[:, j], np.asarray(v_p)[:, j])[0, 1]
-        assert abs(r) > 0.9999, (j, r)
-        rl = np.corrcoef(l_x[:, j], l_p[:, j])[0, 1]
-        assert abs(rl) > 0.9999, (j, rl)

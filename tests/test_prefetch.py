@@ -136,7 +136,10 @@ def test_streaming_matrix_matches_resident(tmp_path, rng):
     )
     prep = prepare_data(cfg)
 
-    sm_stream = prep.load_streaming_matrix(strip_size=64)
+    # f32 products: the comparison is against the f32 striped reference.
+    sm_stream = prep.load_streaming_matrix(
+        strip_size=64, kernel_precision="f32"
+    )
     sm_resident = prep.load_striped_matrix(strip_size=64)
 
     import jax.numpy as jnp
@@ -201,8 +204,8 @@ def test_prefetcher_timeout():
 
 def test_streaming_matrix_packed_vs_dense(tmp_path, rng):
     """Packed streaming (the packed_pipeline default) == dense streaming
-    through every pass, including keep-list repack and interpret-mode
-    Pallas kernels with a strip size that does not divide tile_d."""
+    through every pass, including keep-list repack and a strip size
+    that row-pads to whole scan steps."""
     from genomic_pca_tpu.io.bed import write_plink
     from genomic_pca_tpu.models.prepare import prepare_data
     from genomic_pca_tpu.config import DataPrepConfig
@@ -246,21 +249,23 @@ def test_streaming_matrix_packed_vs_dense(tmp_path, rng):
             sm_pk.right_apply(b), sm_dn.right_apply(b), rtol=1e-4, atol=1e-2
         )
 
-        # Pallas interpret modes on the packed strips: row padding to the
-        # kernel grid (60 rows -> tile multiple) must stay inert.
-        for mode in ("pallas_interpret", "pallas2d_interpret"):
-            sm_i = prep.load_streaming_matrix(
-                strip_size=60, mode=mode, tile_d=32, kernel_precision="f32"
-            )
-            assert sm_i.strip_rows % sm_i.tile_d == 0
-            np.testing.assert_allclose(
-                np.asarray(sm_i.gram_apply(b)),
-                np.asarray(sm_dn.gram_apply(b)), rtol=1e-4, atol=1e-2,
-            )
-            np.testing.assert_allclose(
-                sm_i.right_apply(b), sm_dn.right_apply(b),
-                rtol=1e-4, atol=1e-2,
-            )
+        # 32-row scan steps on 60-row packed strips: the row padding to
+        # 64 rows must stay inert (against an f32 dense reference).
+        sm_dn32 = prep_dense.load_streaming_matrix(
+            strip_size=60, kernel_precision="f32"
+        )
+        sm_i = prep.load_streaming_matrix(
+            strip_size=60, tile_d=32, kernel_precision="f32"
+        )
+        assert sm_i.step == 32 and sm_i.strip_rows == 64
+        np.testing.assert_allclose(
+            np.asarray(sm_i.gram_apply(b)),
+            np.asarray(sm_dn32.gram_apply(b)), rtol=1e-4, atol=1e-2,
+        )
+        np.testing.assert_allclose(
+            sm_i.right_apply(b), sm_dn32.right_apply(b),
+            rtol=1e-4, atol=1e-2,
+        )
 
 
 def test_streaming_matrix_packed_missing_policy_error(tmp_path, rng):
@@ -303,7 +308,8 @@ def test_streamed_pca_fused_loadings_match(tmp_path, rng):
     prep = prepare_data(cfg)
 
     r_stream = streamed_pca(
-        prep.load_streaming_matrix(strip_size=64), k=3,
+        prep.load_streaming_matrix(strip_size=64, kernel_precision="f32"),
+        k=3,
         n_power_iter=5, seed=9, compute_loadings=True,
     )
     r_resident = streamed_pca(
@@ -343,9 +349,8 @@ def test_streaming_strips_round_robin_across_devices(tmp_path, rng):
     sm_single = prep.load_streaming_matrix(strip_size=64, devices=devs[:1])
     assert len(sm_multi.devices) == len(devs)
 
-    # _fetch returns HOST payloads (worker-thread uploads leak on
-    # relayed backends); the consumer-side generator commits strip i to
-    # device i mod D.
+    # _fetch returns HOST payloads; the consumer-side generator commits
+    # strip i to device i mod D.
     (g0h, _m0, _iv0), _ = sm_multi._fetch(0)
     assert isinstance(g0h, np.ndarray)
     it = sm_multi._prefetcher()

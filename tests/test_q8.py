@@ -1,58 +1,24 @@
-"""Quantized (int8-MXU) power-iteration path.
+"""Quantized (int8) power-iteration path.
 
-The q8 kernel runs the subspace-iteration passes on the int8 MXU (2x
-the bf16 rate) with standardization hoisted to exact rank-1/diagonal
-corrections; the driver polishes with the exact bf16 kernel before the
-Rayleigh-Ritz (parallel/sharded.py `power_loop`).  These tests pin:
-
-1. the kernel against the exact quantization model (interpret mode),
-2. end-to-end PC concordance of kernel_precision="q8" vs the float64
-   oracle — including missing genotypes, whose sentinel the quantized
-   passes approximate as raw 0 (ops/pallas_kernels.py q8 notes).
+The q8 steering pass (ops/products.gram_q8) runs the subspace-iteration
+passes as s8 x s8 -> s32 matmuls with standardization hoisted to exact
+rank-1/diagonal corrections; the power loop polishes with the exact bf16
+products before the Rayleigh-Ritz (parallel/sharded.py `power_loop`).
+These tests pin end-to-end PC concordance of kernel_precision="q8" vs
+the float64 oracle — including missing genotypes, whose sentinel the
+quantized passes approximate as raw 0 (ops/products.py q8 notes), and
+strips bounded below the row tile (wide sample axes).  The pass itself
+is pinned against its quantization model in tests/test_products.py.
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from genomic_pca_tpu.models.pca import streamed_pca
-from genomic_pca_tpu.ops import pallas_kernels as pk
+from genomic_pca_tpu.ops import products
 from genomic_pca_tpu.parallel.mesh import make_mesh
 from genomic_pca_tpu.parallel.sharded import ShardedMatrix
 from tests.conftest import make_genotypes
-
-
-def _quant_model_reference(g, iv, u, bq, sb, tile_d):
-    """Host float64 replay of the kernel's exact quantization model."""
-    g0 = np.maximum(g, 0).astype(np.float64)
-    a = iv * g0 - u  # (d, n) operator applied to dequantized basis
-    y = a @ (bq.astype(np.float64) * sb)
-    t = np.zeros((g.shape[1], bq.shape[1]))
-    for lo in range(0, g.shape[0], tile_d):
-        z = iv[lo : lo + tile_d] * y[lo : lo + tile_d]
-        sz = np.abs(z).max() / 127.0 + 1e-30
-        z8 = np.clip(np.round(z / sz), -127, 127)
-        t += g0[lo : lo + tile_d].T @ z8 * sz
-    return t - (u * y).sum(axis=0)[None, :]
-
-
-def test_fused_gram_q8_matches_quant_model(rng):
-    d, n, ell = 512, 256, 128
-    g = make_genotypes(rng, d, n, missing_rate=0.02)
-    iv = rng.uniform(0.5, 2.0, (d, 1)).astype(np.float32)
-    u = rng.uniform(0.0, 2.0, (d, 1)).astype(np.float32)
-    b = rng.standard_normal((n, ell)).astype(np.float32)
-    sb = np.float32(np.abs(b).max() / 127.0)
-    bq = np.clip(np.round(b / sb), -127, 127).astype(np.int8)
-    csum = (bq.astype(np.float32).sum(axis=0) * sb)[None, :]
-    out, ru = pk.fused_gram_q8(
-        jnp.asarray(g), jnp.asarray(iv), jnp.asarray(u), jnp.asarray(bq),
-        jnp.asarray(sb).reshape(1, 1), jnp.asarray(csum),
-        tile_d=128, interpret=True,
-    )
-    t = np.asarray(out) - np.asarray(ru)
-    t_ref = _quant_model_reference(g, iv, u, bq, sb, tile_d=128)
-    np.testing.assert_allclose(t, t_ref, rtol=1e-4, atol=1e-2)
 
 
 def _exact_pcs(g, k):
@@ -75,8 +41,7 @@ def test_q8_pca_concordance_vs_f64(rng):
     v_true, _ = _exact_pcs(g, k)
     mesh = make_mesh()
     sm = ShardedMatrix.from_arrays(
-        iter([g]), mesh=mesh, mode="pallas_interpret",
-        kernel_precision="q8", tile_d=128,
+        iter([g]), mesh=mesh, kernel_precision="q8", tile_d=128,
     )
     res = streamed_pca(sm, k=k, n_power_iter=6, seed=11)
     for i in range(k):
@@ -88,16 +53,14 @@ def test_q8_pca_concordance_vs_f64(rng):
 def test_q8_matches_bf16_path(rng):
     """q8 and plain-bf16 containers agree on the same data (no missing).
 
-    Layout note: this also pins that dense containers keep the BASE
-    row-padding granule under the default q8 precision — during round 5
-    an unconditional 2*tile_d q8 granule redistributed rows across the
-    8-device mesh and shifted PC4 concordance to 0.99986 via f32
-    summation-order changes alone (the doubled q8 tile itself is
-    packed-only and never runs on this dense path)."""
+    Layout note: the row-padding granule is tile_d for every precision,
+    so both containers distribute rows identically across the 8-device
+    mesh (a precision-dependent granule once shifted PC4 concordance to
+    0.99986 via f32 summation-order changes alone)."""
     d, n, k = 768, 128, 4
     g = make_genotypes(rng, d, n, missing_rate=0.0, n_pops=6, fst=0.15)
     mesh = make_mesh()
-    kw = dict(mesh=mesh, mode="pallas_interpret", tile_d=128)
+    kw = dict(mesh=mesh, tile_d=128)
     sm_b = ShardedMatrix.from_arrays(iter([g]), kernel_precision="bf16", **kw)
     sm_q = ShardedMatrix.from_arrays(iter([g]), kernel_precision="q8", **kw)
     rb = streamed_pca(sm_b, k=k, n_power_iter=5, seed=3)
@@ -128,8 +91,7 @@ def test_q8_packed_matches_dense_q8(rng):
         (((g0 - mean[:, None]) ** 2) * valid).sum(axis=1) / (cnt - 1)
     ).astype(np.float32)
     mesh = make_mesh()
-    kw = dict(mesh=mesh, mode="pallas_interpret", tile_d=128,
-              kernel_precision="q8")
+    kw = dict(mesh=mesh, tile_d=128, kernel_precision="q8")
     sm_d = ShardedMatrix.from_arrays(
         iter([g]), means=[mean], stds=[std], **kw
     )
@@ -149,43 +111,25 @@ def test_q8_packed_matches_dense_q8(rng):
 
 
 # ---------------------------------------------------------------------------
-# Round-3 additions: 2-D tiled q8 path, streaming q8, SWAR pinning, and
-# the high-missingness polish discipline.
+# Bounded strips (wide sample axes): STRIP_BYTES caps the f32 strip, so
+# the scan steps shrink below tile_d and z re-quantizes per smaller
+# strip.  Shrinking the budget reproduces that regime at test size.
 
 
-def test_q8_pass_2d_matches_quant_model(rng):
-    """q8_power_pass_2d (int8 2-D kernels + XLA corrections) reproduces
-    the same quantization model as the fused 1-D kernel."""
-    d, n, ell = 512, 256, 128
-    tile_d = 128
-    g = make_genotypes(rng, d, n, missing_rate=0.02)
-    iv = rng.uniform(0.5, 2.0, (d, 1)).astype(np.float32)
-    u = rng.uniform(0.0, 2.0, (d, 1)).astype(np.float32)
-    b = rng.standard_normal((n, ell)).astype(np.float32)
-    sb = np.float32(np.abs(b).max() / 127.0)
-    bq = np.clip(np.round(b / sb), -127, 127).astype(np.int8)
-    csum = (bq.astype(np.float32).sum(axis=0) * sb)[None, :]
-    out, ru = pk.q8_power_pass_2d(
-        jnp.asarray(g), jnp.asarray(iv), jnp.asarray(u), jnp.asarray(bq),
-        jnp.asarray(sb).reshape(1, 1), jnp.asarray(csum),
-        tile_d=tile_d, tile_n=128, interpret=True,
-    )
-    t = np.asarray(out) - np.asarray(ru)
-    t_ref = _quant_model_reference(g, iv, u, bq, sb, tile_d=tile_d)
-    np.testing.assert_allclose(t, t_ref, rtol=1e-4, atol=1e-2)
+@pytest.fixture
+def small_strips(monkeypatch):
+    monkeypatch.setattr(products, "STRIP_BYTES", 32 << 10)
 
 
-def test_q8_2d_container_concordance_vs_f64(rng):
-    """pallas2d + q8 (the biobank-wide-N regime) matches the f64 oracle."""
+def test_q8_bounded_strips_concordance_vs_f64(rng, small_strips):
+    """Resident q8 with strips bounded below tile_d matches float64."""
     d, n, k = 1024, 192, 6
     g = make_genotypes(rng, d, n, missing_rate=0.02, n_pops=8, fst=0.12)
     v_true, _ = _exact_pcs(g, k)
-    mesh = make_mesh()
     sm = ShardedMatrix.from_arrays(
-        iter([g]), mesh=mesh, mode="pallas2d_interpret",
-        kernel_precision="q8", tile_d=128,
+        iter([g]), mesh=make_mesh(), kernel_precision="q8", tile_d=128,
     )
-    assert sm.mode == "pallas2d_interpret"
+    assert sm.step < sm.tile_d
     res = streamed_pca(sm, k=k, n_power_iter=6, seed=11)
     for i in range(k):
         v = res.scores[:, i] / np.linalg.norm(res.scores[:, i])
@@ -193,9 +137,8 @@ def test_q8_2d_container_concordance_vs_f64(rng):
         assert r > 0.999, (i, r)
 
 
-def test_q8_2d_packed_container_matches_dense(rng):
-    """Packed pallas2d q8 (2-bit layout, tile-local plane-major) agrees
-    with the dense pallas2d q8 container."""
+def test_q8_bounded_strips_packed_matches_dense(rng, small_strips):
+    """Packed q8 with bounded strips agrees with the dense container."""
     from genomic_pca_tpu.parallel.sharded import pack_int8_rows
 
     d, n, k = 512, 192, 4
@@ -207,14 +150,12 @@ def test_q8_2d_packed_container_matches_dense(rng):
     std = np.sqrt(
         (((g0 - mean[:, None]) ** 2) * valid).sum(axis=1) / (cnt - 1)
     ).astype(np.float32)
-    mesh = make_mesh()
-    kw = dict(mesh=mesh, mode="pallas2d_interpret", tile_d=128,
-              kernel_precision="q8")
+    kw = dict(mesh=make_mesh(), tile_d=128, kernel_precision="q8")
     sm_d = ShardedMatrix.from_arrays(iter([g]), means=[mean], stds=[std], **kw)
     sm_p = ShardedMatrix.from_packed_rows(
         pack_int8_rows(g), mean, std, n, **kw
     )
-    assert sm_p.packed and sm_p.mode == "pallas2d_interpret"
+    assert sm_p.packed and sm_p.step < sm_p.tile_d
     rd = streamed_pca(sm_d, k=k, n_power_iter=5, seed=3)
     rp = streamed_pca(sm_p, k=k, n_power_iter=5, seed=3)
     for i in range(k):
@@ -226,7 +167,7 @@ def test_q8_2d_packed_container_matches_dense(rng):
         assert r > 0.9999, (i, r)
 
 
-def _streaming_from_dense(g, strip, mode, packed, **kw):
+def _streaming_from_dense(g, strip, packed, **kw):
     from genomic_pca_tpu.ops.streaming import StreamingMatrix
     from genomic_pca_tpu.parallel.sharded import inv_std_of, pack_int8_rows
 
@@ -255,20 +196,19 @@ def _streaming_from_dense(g, strip, mode, packed, **kw):
 
     return StreamingMatrix(
         source, n_strips=n_strips, n_rows=d, n_samples=n,
-        strip_size=strip, mode=mode, packed=packed, **kw
+        strip_size=strip, packed=packed, **kw
     ), inv_std_of
 
 
 def test_streaming_q8_concordance_vs_f64(rng):
     """StreamingMatrix with q8 steering + exact polish matches the f64
-    oracle (the bigger-than-HBM container finally gets the int8 MXU)."""
+    oracle (the bigger-than-device-memory container)."""
     d, n, k = 1024, 192, 5
     g = make_genotypes(rng, d, n, missing_rate=0.02, n_pops=8, fst=0.12)
     v_true, _ = _exact_pcs(g, k)
     for packed in (False, True):
         sm, _ = _streaming_from_dense(
-            g, strip=256, mode="pallas_interpret", packed=packed,
-            kernel_precision="q8", tile_d=128,
+            g, strip=256, packed=packed, kernel_precision="q8", tile_d=128,
         )
         assert sm.q8_polish == 1
         res = streamed_pca(sm, k=k, n_power_iter=6, seed=11)
@@ -278,15 +218,15 @@ def test_streaming_q8_concordance_vs_f64(rng):
             assert r > 0.999, (packed, i, r)
 
 
-def test_streaming_q8_2d_mode(rng):
-    """Streaming q8 through the 2-D tiled kernels (wide-N streaming)."""
+def test_streaming_q8_bounded_strips(rng, small_strips):
+    """Streaming q8 with strips split into bounded scan steps."""
     d, n, k = 512, 192, 4
     g = make_genotypes(rng, d, n, missing_rate=0.0, n_pops=6, fst=0.15)
     v_true, _ = _exact_pcs(g, k)
     sm, _ = _streaming_from_dense(
-        g, strip=256, mode="pallas2d_interpret", packed=True,
-        kernel_precision="q8", tile_d=128,
+        g, strip=256, packed=True, kernel_precision="q8", tile_d=128,
     )
+    assert sm.step < 256 and sm.strip_rows == 256
     res = streamed_pca(sm, k=k, n_power_iter=5, seed=7)
     for i in range(k):
         v = res.scores[:, i] / np.linalg.norm(res.scores[:, i])
@@ -303,8 +243,6 @@ def test_q8_high_missingness_polish(rng):
     assert resolve_q8_polish(None, 0.02) == 1
     assert resolve_q8_polish(None, 0.10) == 2
     assert resolve_q8_polish(3, 0.0) == 3
-    import pytest
-
     with pytest.raises(ValueError):
         resolve_q8_polish(0, None)
 
@@ -313,8 +251,7 @@ def test_q8_high_missingness_polish(rng):
     v_true, _ = _exact_pcs(g, k)
     mesh = make_mesh()
     sm = ShardedMatrix.from_arrays(
-        iter([g]), mesh=mesh, mode="pallas_interpret",
-        kernel_precision="q8", tile_d=128, missing_fraction=0.10,
+        iter([g]), mesh=mesh, kernel_precision="q8", tile_d=128, missing_fraction=0.10,
     )
     assert sm.q8_polish == 2
     res = streamed_pca(sm, k=k, n_power_iter=6, seed=11)
@@ -322,79 +259,3 @@ def test_q8_high_missingness_polish(rng):
         v = res.scores[:, i] / np.linalg.norm(res.scores[:, i])
         r = abs(float(np.dot(v, v_true[:, i])))
         assert r > 0.999, (i, r)
-
-
-def test_swar_sentinel_clean_all_bytes():
-    """Pin the production SWAR sentinel-clean (u32 bitcast path, which
-    CI's interpret mode never executes) against the maximum-based clean
-    over every possible int8 byte value in every lane position."""
-    vals = np.arange(256, dtype=np.uint32)  # all byte patterns
-    for lane in range(4):
-        x32 = vals << (8 * lane)
-        sign = x32 & np.uint32(0x80808080)
-        cleaned = x32 & ~((sign >> np.uint32(7)) * np.uint32(0xFF))
-        got = ((cleaned >> (8 * lane)) & 0xFF).astype(np.uint8)
-        expect_i8 = np.maximum(vals.astype(np.uint8).view(np.int8), 0)
-        np.testing.assert_array_equal(
-            got.view(np.int8), expect_i8,
-            err_msg=f"lane {lane}",
-        )
-        # Other lanes stay zero (no carry bleed between bytes).
-        assert (cleaned & ~(np.uint32(0xFF) << (8 * lane))).max() == 0
-
-
-def test_swar_unpack_formula_all_bytes():
-    """Pin the SWAR byte-parallel packed unpack (u32 path, TPU-only)
-    against the scalar semantics for EVERY byte value: per 2-bit code
-    with low bit a and high bit b, dosage = na + (na & nb) on the
-    complemented bits (na = ~a, nb = ~b) maps codes {0,1,2,3} ->
-    {2,0,1,0} — i.e. (4-c)>>1 with missing (c==1) -> 0 — four codes
-    per byte, four bytes per u32 lane."""
-    vals = np.arange(256, dtype=np.uint32)
-    m = np.uint32(0x01010101)
-    for lane in range(4):  # byte position inside the u32
-        x32 = vals << np.uint32(8 * lane)
-        u32 = ~x32
-        h32 = u32 & (u32 >> np.uint32(1))
-        for p in range(4):  # plane = 2-bit field inside each byte
-            d = ((u32 >> np.uint32(2 * p)) & m) + (
-                (h32 >> np.uint32(2 * p)) & m
-            )
-            got = ((d >> np.uint32(8 * lane)) & 0xFF).astype(np.uint8)
-            # scalar reference for the byte in this lane
-            code = (vals.astype(np.uint8) >> (2 * p)) & 3
-            ref = np.where(code == 1, 0, (4 - code.astype(np.int64)) >> 1)
-            np.testing.assert_array_equal(
-                got.astype(np.int64), ref, err_msg=f"lane {lane} plane {p}"
-            )
-
-    # Cross-byte independence: every adjacent byte pair decodes as if
-    # alone (no carry bleed between bytes in the add, and h's >>1
-    # never crosses a byte boundary for the extracted positions
-    # 2p <= 6).
-    lo = np.repeat(np.arange(256, dtype=np.uint32), 256)
-    hi = np.tile(np.arange(256, dtype=np.uint32), 256)
-    x32 = lo | (hi << np.uint32(8))
-
-    def swar(x):
-        u = ~x
-        h = u & (u >> np.uint32(1))
-        out = []
-        for p in range(4):
-            out.append(
-                ((u >> np.uint32(2 * p)) & m) + ((h >> np.uint32(2 * p)) & m)
-            )
-        return out
-
-    pair = swar(x32)
-    solo_lo = swar(lo)
-    solo_hi = swar(hi << np.uint32(8))
-    for p in range(4):
-        np.testing.assert_array_equal(
-            pair[p] & np.uint32(0xFF), solo_lo[p] & np.uint32(0xFF),
-            err_msg=f"plane {p} low byte perturbed by neighbor",
-        )
-        np.testing.assert_array_equal(
-            pair[p] & np.uint32(0xFF00), solo_hi[p] & np.uint32(0xFF00),
-            err_msg=f"plane {p} high byte perturbed by neighbor",
-        )

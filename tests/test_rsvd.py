@@ -103,7 +103,7 @@ def test_rfit_tolerance_early_exit(rng):
     assert tight.n_iter_done == n_iter
 
 
-def test_rfit_tolerance_q8_interpret(rng):
+def test_rfit_tolerance_q8(rng):
     """Tolerance composes with the q8 steering + polish discipline."""
     from genomic_pca_tpu.models.pca import streamed_pca
     from genomic_pca_tpu.parallel.mesh import make_mesh
@@ -112,8 +112,7 @@ def test_rfit_tolerance_q8_interpret(rng):
 
     g = make_genotypes(rng, 512, 128, n_pops=4, fst=0.25)
     sm = ShardedMatrix.from_arrays(
-        iter([g]), mesh=make_mesh(), mode="pallas_interpret",
-        kernel_precision="q8", tile_d=128,
+        iter([g]), mesh=make_mesh(), kernel_precision="q8", tile_d=128,
     )
     res = streamed_pca(sm, k=4, n_power_iter=8, seed=1, tolerance=5e-2)
     assert res.n_iter_done < 8
@@ -131,8 +130,7 @@ def test_rfit_tolerance_streaming_q8(rng):
 
     g = make_genotypes(rng, 768, 128, n_pops=4, fst=0.25)
     sm, _ = _streaming_from_dense(
-        g, strip=256, mode="pallas_interpret", packed=True,
-        kernel_precision="q8", tile_d=128,
+        g, strip=256, packed=True, kernel_precision="q8", tile_d=128,
     )
     n_iter = 8
     res = streamed_pca(sm, k=4, n_power_iter=n_iter, seed=1, tolerance=5e-2)

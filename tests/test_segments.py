@@ -110,8 +110,8 @@ def _segmented_matrix(geno, mesh, seg_break, rows_pp, tile_d=64):
         n_rows=d,
         n_samples=n,
         mesh=mesh,
-        mode="xla",
         tile_d=tile_d,
+        kernel_precision="f32",
         row_segments=np.asarray(segs, dtype=np.int64),
     )
 
@@ -121,7 +121,7 @@ def seg_pair(rng):
     geno = make_genotypes(rng, 200, 40, missing_rate=0.02)
     mesh = make_mesh()
     prefix = ShardedMatrix.from_arrays(
-        iter([geno]), mesh=mesh, mode="xla", tile_d=64
+        iter([geno]), mesh=mesh, tile_d=64, kernel_precision="f32"
     )
     seg = _segmented_matrix(geno, mesh, seg_break=120, rows_pp=512)
     return geno, prefix, seg

@@ -3,7 +3,6 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 from genomic_pca_tpu.models.pca import streamed_pca
 from genomic_pca_tpu.ops.stream import StripedMatrix
@@ -16,9 +15,12 @@ def test_eight_devices_available():
     assert len(jax.devices()) == 8
 
 
-def _build(geno, mesh, mode="xla", tile_d=64, **kw):
+def _build(geno, mesh, tile_d=64, kernel_precision="f32", **kw):
+    """Layout and sharding checks compare against f32 references, so
+    the container runs f32 products."""
     return ShardedMatrix.from_arrays(
-        iter([geno]), mesh=mesh, mode=mode, tile_d=tile_d, **kw
+        iter([geno]), mesh=mesh, tile_d=tile_d,
+        kernel_precision=kernel_precision, **kw
     )
 
 
@@ -38,25 +40,6 @@ def test_sharded_matches_striped(rng):
     )
     np.testing.assert_allclose(
         sm.right_apply(b), ref.right_apply(b), rtol=1e-4, atol=1e-2
-    )
-
-
-def test_pallas_interpret_matches_xla(rng):
-    geno = make_genotypes(rng, 300, 30, missing_rate=0.03)
-    mesh = make_mesh()
-    sm_x = _build(geno, mesh, mode="xla")
-    sm_p = _build(geno, mesh, mode="pallas_interpret", kernel_precision="f32")
-    b = jnp.asarray(rng.standard_normal((30, 5)).astype(np.float32))
-    np.testing.assert_allclose(
-        np.asarray(sm_p.gram_apply(b)), np.asarray(sm_x.gram_apply(b)),
-        rtol=1e-4, atol=1e-2,
-    )
-    np.testing.assert_allclose(
-        np.asarray(sm_p.tsq_accumulate(b)), np.asarray(sm_x.tsq_accumulate(b)),
-        rtol=1e-4, atol=1e-1,
-    )
-    np.testing.assert_allclose(
-        sm_p.right_apply(b), sm_x.right_apply(b), rtol=1e-4, atol=1e-2
     )
 
 
@@ -128,11 +111,10 @@ def test_from_local_rows_matches_from_arrays(rng):
 
     mesh = make_mesh()
     sm_local = ShardedMatrix.from_local_rows(
-        read_rows, n_rows=200, n_samples=30, mesh=mesh, mode="xla", tile_d=64
+        read_rows, n_rows=200, n_samples=30, mesh=mesh, tile_d=64,
+        kernel_precision="f32",
     )
-    sm_pack = ShardedMatrix.from_arrays(
-        iter([geno]), mesh=mesh, mode="xla", tile_d=64
-    )
+    sm_pack = _build(geno, mesh)
     b = jnp.asarray(rng.standard_normal((30, 4)).astype(np.float32))
     np.testing.assert_allclose(
         np.asarray(sm_local.gram_apply(b)), np.asarray(sm_pack.gram_apply(b)),
@@ -173,109 +155,3 @@ def test_pca_core_matches_decomposed(rng):
     for j in range(k):
         r = np.corrcoef(scores[:, j], ref_scores[:, j])[0, 1]
         assert abs(r) > 0.9999
-
-
-def test_auto_tile_d():
-    from genomic_pca_tpu.parallel.sharded import auto_tile_d
-
-    # modest sample counts keep the requested tile
-    assert auto_tile_d(2048, 128, 512) == 512
-    # bf16 mode (compare-free, no f32 intermediate) fits 1024 at N=2048,
-    # f32 mode only 512 — both verified on hardware (scripts/tune_kernels.py)
-    assert auto_tile_d(2048, 128, 1024, "bf16") == 1024
-    assert auto_tile_d(2048, 128, 1024, "f32") == 512
-    # growing N shrinks the tile...
-    t = auto_tile_d(8192, 128, 512)
-    assert 0 < t < 512
-    # ...until no tile fits (biobank N) -> 0 means fall back to XLA
-    assert auto_tile_d(524288, 128, 512) == 0
-
-
-def test_wide_sample_axis_falls_back_to_xla(rng, monkeypatch):
-    """A matrix wider than any VMEM tile must construct in xla mode."""
-    from genomic_pca_tpu.parallel import sharded as sh
-
-    monkeypatch.setattr(sh, "_default_mode", lambda: "pallas")
-    geno = make_genotypes(rng, 64, 40)
-    sm = sh.ShardedMatrix.from_arrays(
-        iter([geno]), mesh=make_mesh(jax.devices()[:1]), tile_d=64
-    )
-    # 40 samples -> pallas fine (interpret would be needed on CPU, but
-    # mode selection happens before compile; only check the decision)
-    assert sm.mode in ("pallas", "xla")
-
-    big_n = 600_000
-
-    class FakeGeno:
-        shape = (64, sh._round_up(big_n, 128))
-
-    # decision logic only: auto_tile_d returns 0 => xla
-    assert sh.auto_tile_d(sh._round_up(big_n, 128)) == 0
-
-
-def test_pallas2d_interpret_matches_xla(rng):
-    """2-D tiled kernel path (wide-N mode) matches XLA results."""
-    geno = make_genotypes(rng, 300, 40, missing_rate=0.03)
-    mesh = make_mesh()
-    sm_x = _build(geno, mesh, mode="xla")
-    sm_p = _build(
-        geno, mesh, mode="pallas2d_interpret", kernel_precision="f32"
-    )
-    assert sm_p.tile_n == 128
-    b = jnp.asarray(rng.standard_normal((40, 5)).astype(np.float32))
-    np.testing.assert_allclose(
-        np.asarray(sm_p.gram_apply(b)), np.asarray(sm_x.gram_apply(b)),
-        rtol=1e-4, atol=1e-2,
-    )
-    np.testing.assert_allclose(
-        np.asarray(sm_p.tsq_accumulate(b)), np.asarray(sm_x.tsq_accumulate(b)),
-        rtol=1e-4, atol=1e-1,
-    )
-    np.testing.assert_allclose(
-        sm_p.right_apply(b), sm_x.right_apply(b), rtol=1e-4, atol=1e-2
-    )
-
-
-def test_q8_tile_sizing_contracts():
-    """Pin the q8 steering-tile choosers' contracts: divisibility, the
-    power-of-two growth, the VMEM-budget rejection, the hard caps, and
-    the 2-D formula's ell>128 calibration guard (sharded.py round-5
-    sizing; VALIDATION.md round 5 for the measured choices)."""
-    from genomic_pca_tpu.parallel.sharded import (
-        _grow_pow2_tile, _q8_packed_tile_d, _q8_packed_tile_d_2d,
-        _row_pad_tile, vmem_budget_bytes,
-    )
-
-    budget = vmem_budget_bytes()
-
-    # _grow_pow2_tile: base when nothing grows; respects divisibility.
-    assert _grow_pow2_tile(1024, 1024, 4096, lambda t: 0) == 1024
-    # d % (2*base) != 0 blocks doubling even with infinite budget
-    assert _grow_pow2_tile(3 * 1024, 1024, 4096, lambda t: 0) == 1024
-    # budget rejection: a step-cost exceeding VMEM stops growth
-    assert _grow_pow2_tile(8192, 1024, 8192, lambda t: t * 1024) in (
-        1024, 2048, 4096, 8192,
-    )
-    assert _grow_pow2_tile(
-        8192, 1024, 8192, lambda t: budget + 1 if t > 1024 else 0
-    ) == 1024
-
-    # 1-D packed chooser at the bench shape (262,144-row shard, 512
-    # packed cols, L=128): doubles to 2048 (the measured round-5
-    # choice) and never beyond its cap.
-    t1 = _q8_packed_tile_d(262_144, 512, 128, 1024)
-    assert t1 == 2048
-    # at a huge packed width nothing fits beyond base
-    assert _q8_packed_tile_d(262_144, 65_536, 128, 1024) == 1024
-
-    # 2-D chooser at the biobank-class shape (65,536 rows, 512-byte
-    # column tile, L=128): the measured (4096, 512) choice.
-    assert _q8_packed_tile_d_2d(65_536, 512, 128, 1024) == 4096
-    # wider sketches are outside the calibrated envelope -> base tile
-    assert _q8_packed_tile_d_2d(65_536, 512, 256, 1024) == 1024
-
-    # Row-padding granule: packed q8 pads to 2*tile_d so every shard
-    # divides the doubled steering tile; dense and non-q8 keep base.
-    assert _row_pad_tile(1024, "q8", packed=True) == 2048
-    assert _row_pad_tile(1024, "q8", packed=False) == 1024
-    assert _row_pad_tile(1024, "bf16", packed=True) == 1024
